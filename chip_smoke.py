@@ -6,11 +6,14 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. The device: name, count, and ``nvidia-smi``'s name and power limit.
-2. Build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``.
+2. Build the five CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
+   one process per source, all at once.
 3. Hold each kernel against its plain PyTorch version on the card, on the
    very arguments the dataplane passes it (recorded at ``kernels/ops.py``
-   during two full-size sync rounds of each query) and at ragged edges;
-   time both, and the host's cost of one launch through the wrapper.
+   during two full-size sync rounds of each query, of the keyed dataplane
+   and of dense q5 at 10,000 auctions) and at ragged edges; time both, the
+   one PyTorch call that computes the same function where there is one, and
+   the host's cost of one launch through the wrapper.
 4. Run the dataplane (``build_pipeline``) for every query at a full Nexmark
    deployment: 16 partitions at 625,000 events/s each (nexmark-flink's
    default 10 M events/s in all), 16,384 events per batch, 10 s windows
@@ -18,8 +21,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1,528 batches (40.06 s of event time, about 4.0e8 events).  Hold every
    complete window against the port's own query oracle, delta sync against
    full sync (q4), and a second q4 run against the first, byte for byte;
-   every kernel must have been launched by the queries that use it.
-5. Print events/s and sync bytes per round per query, with the card.
+   every kernel must have been launched by the queries that use it.  Then
+   the hash-sharded keyed dataplane (``build_keyed_pipeline``) on the same
+   deployment over 1,000,000 zipf(1.1) auction ids (the repo's million-key
+   sweep, ``benchmarks/keyed_scale.py``): every complete window of every
+   shard against ``q5_hot_oracle``, the byte counters against counts made
+   apart, a second run byte for byte; a crash-replay schedule and a healed
+   watermark partition against the clean run, and a plane never healed;
+   and dense q5 at 10,000 auctions, whose fold takes the segment reduce.
+5. Print events/s and sync bytes per round per run, with the card.
 6. A JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -35,6 +45,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +64,20 @@ SYNC_EVERY = 4
 NUM_BATCHES = 1_528
 SEED = 0
 QUERIES = ("q0", "q1_ratio", "q4", "q5", "q7")
+# the keyed deployment: the million-key point of the repo's keyed sweep
+# (benchmarks/keyed_scale.py KEY_DOMAINS, KEY_SKEW) on the same source
+NUM_KEYS = 1_000_000
+KEY_SKEW = 1.1
+KEYED_SLOTS = 16  # the keyed pipeline's default ring
+# depth of the chaos and dense-q5 runs: the first 10 s window closes after
+# 382 batches, so 512 hold one complete window
+SHORT_BATCHES = 512
+CRASH_AFTER, REPLAY_FROM = 199, 160  # every shard re-folds 160-199 after step 199
+PARTITIONED = (10, 30)  # watermark rounds 10-29 cut off, then healed
+DENSE_Q5_KEYS = 10_000  # the keyed sweep's dense comparand
+# the segment reduce against its plain version on the card, which sums by
+# atomics in another order (the path's sums are of 1.0s, exact either way)
+SEG_SUM_RTOL = 1e-5
 # f32 tolerances of the dataplane against the oracle (float64 or exact ints):
 # q1_ratio: a 10 s window holds ~9.2e7 bids, beyond the 2^24 that f32
 #   counts exactly, so the global count (a sum of 16 per-partition counts,
@@ -92,7 +117,8 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def host_us(fn, iters: int = 100) -> float:
     """Mean host time of one call of ``fn`` in µs, while a device spin of
-    ~50 ms keeps the card busy, so each call only enqueues its work."""
+    ~50 ms keeps the card busy, so each call only enqueues its work (keep
+    ``iters`` times the call's launches under the launch queue's ~1,000)."""
     fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(100_000_000)
@@ -184,27 +210,51 @@ def recording_kernel_calls():
 
 
 def main_path_calls(dev) -> dict:
-    """Each query's kernel calls at the full-size deployment, exactly as
-    ``build_pipeline`` makes them: ``{query: {kernel: [(args, kwargs)]}}``
-    holding the fold calls of the last batch and the merge calls of the last
-    sync round of two rounds whose last batch straddles a window boundary."""
+    """Each run's kernel calls at the full-size deployment, exactly as the
+    dataplane makes them: ``{run: {kernel: [(args, kwargs)]}}`` holding the
+    fold calls of the last batch and the merge calls of the last sync round
+    of two rounds whose last batch straddles a window boundary.  Runs: every
+    query of ``build_pipeline``, the keyed dataplane (``keyed``) and dense
+    q5 at 10,000 auctions (``q5_10k``)."""
+    from repro_torch.core.wcrdt import KeyShards
     from repro_torch.launch.mesh import make_data_mesh
-    from repro_torch.launch.stream import MAKERS, build_pipeline
+    from repro_torch.launch.stream import (
+        MAKERS, build_keyed_pipeline, build_pipeline, default_fold_schedule,
+    )
     from repro_torch.streaming.generator import NexmarkConfig, generate_log
 
     nb = 2 * SYNC_EVERY
     nx = NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=B,
                        rate_per_partition=RATE, seed=SEED + 1)
     nx = dataclasses.replace(nx, base_ts=int(7 * WINDOW_MS - (nb - 0.5) * nx.batch_span_ms))
-    log_ = generate_log(nx, dev)
     mesh = make_data_mesh(S, dev)
-    per = {"window_agg": nb, "topk_window": nb, "gated_delta_merge": nb // SYNC_EVERY}
+    per = {"window_agg": nb, "topk_window": nb, "gated_delta_merge": nb // SYNC_EVERY,
+           "segment_reduce": nb, "crdt_merge": nb // SYNC_EVERY}
+
+    def last(calls):
+        return {k: c[len(c) - len(c) // per[k]:] for k, c in calls.items()}
+
     out = {}
+    log_ = generate_log(nx, dev)
     for qn in QUERIES:
         q = MAKERS[qn](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS)
         with recording_kernel_calls() as calls:
             build_pipeline(q, mesh, SYNC_EVERY, n_windows=1)(log_)
-        out[qn] = {k: c[len(c) - len(c) // per[k]:] for k, c in calls.items()}
+        out[qn] = last(calls)
+    skewed = dataclasses.replace(nx, key_skew=KEY_SKEW)
+    log_ = generate_log(dataclasses.replace(skewed, num_auctions=DENSE_Q5_KEYS), dev)
+    q = MAKERS["q5"](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS, num_auctions=DENSE_Q5_KEYS)
+    with recording_kernel_calls() as calls:
+        build_pipeline(q, mesh, SYNC_EVERY, n_windows=1)(log_)
+    out["q5_10k"] = last(calls)
+    log_ = generate_log(dataclasses.replace(skewed, num_auctions=NUM_KEYS), dev)
+    shards = KeyShards(NUM_KEYS, S)
+    pipe = build_keyed_pipeline(mesh, shards, window_len=WINDOW_MS, num_slots=KEYED_SLOTS,
+                                sync_every=SYNC_EVERY, n_windows=1)
+    with recording_kernel_calls() as calls:
+        pipe(log_, shards.key_table(dev), default_fold_schedule(S, nb),
+             torch.ones(nb // SYNC_EVERY, dtype=torch.bool))
+    out["keyed"] = last(calls)
     return out
 
 
@@ -236,6 +286,8 @@ def check_window_agg(dev, calls: dict) -> dict:
                     err = assert_equal(name, got, want)
                 # lane-order folds on both sides: bitwise against the CPU version
                 assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
+                if qn == "q4":  # no atomics: a second run gives the same bits
+                    assert_equal(name + " (second run)", window_agg.window_agg(*args, **kw_op), got)
                 row = {"shape": name, "max_abs_err": err}
                 if op == kw["op"]:
                     row["ms"] = cuda_ms(lambda: window_agg.window_agg(*args, **kw_op))
@@ -366,6 +418,132 @@ def check_topk_window(dev, calls: dict) -> dict:
     return row
 
 
+def check_segment_reduce(dev, calls: dict) -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import segment_reduce as seg
+
+    rows = []
+    # the main path: the keyed dataplane's fold of one step, dense q5's at
+    # 10,000 auctions
+    for tag in ("keyed", "q5_10k"):
+        for i, (args, kw) in enumerate(calls[tag]["segment_reduce"]):
+            vals, segs, mask, n_seg = args
+            op, init = kw["op"], kw.get("init")
+            N = vals.shape[0]
+            got = seg.segment_reduce(*args, **kw)
+            want = ref.segment_reduce_ref(*args, **kw)
+            cpu = ref.segment_reduce_ref(*(_to_cpu(a) for a in args),
+                                         **{k: _to_cpu(v) for k, v in kw.items()})
+            name = f"segment_reduce {tag} call {i} op={op} N={N} n_seg={n_seg}"
+            if op == "sum":
+                err = assert_close(name, got, want, SEG_SUM_RTOL)
+            else:
+                err = assert_equal(name, got, want)
+            # each segment folds in lane order from init on both sides
+            assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
+            assert_equal(name + " (second run)", seg.segment_reduce(*args, **kw), got)
+            srt = seg.sort_lanes(vals, segs, mask, n_seg)
+            red = {"sum": "sum", "count": "sum", "max": "amax", "min": "amin"}[op]
+            segm = torch.where(mask, segs, n_seg).long()
+            acc = torch.zeros(n_seg + 1, device=dev)
+            row = {"shape": name, "max_abs_err": err,
+                   "ms": cuda_ms(lambda: seg.reduce_sorted(*srt, n_seg, op=op, init=init)),
+                   "sort_ms": cuda_ms(lambda: seg.sort_lanes(vals, segs, mask, n_seg)),
+                   "wrapper_ms": cuda_ms(lambda: seg.segment_reduce(*args, **kw)),
+                   "plain_ms": cuda_ms(lambda: ref.segment_reduce_ref(*args, **kw)),
+                   "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
+                       0, segm, vals, red, include_self=False))}
+            # host µs of the path's call (sort and launch); the bare ctypes
+            # launch is timed on the kept sorted stream, since the
+            # wrapper's sorted temporaries do not outlive its call
+            bare = wrapper_host_us(seg.KERNEL, lambda: seg.reduce_sorted(*srt, n_seg, op=op,
+                                                                         init=init))
+            # the sort is a dozen launches: 20 calls keep the queue short
+            row.update(host_us=host_us(lambda: ops.segment_reduce(*args, **kw), iters=20),
+                       sort_host_us=host_us(lambda: seg.sort_lanes(vals, segs, mask, n_seg),
+                                            iters=20),
+                       launch_us=bare["launch_us"], reduce_host_us=bare["host_us"])
+            # bytes the reduce needs: every mask byte, the segment and value
+            # of each live lane, init read and the output written; one
+            # operation per live lane and per segment
+            live = int(mask.sum())
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes(mask, init) + live * 8 + nbytes(got), live + n_seg)
+            rows.append(row)
+            log(json.dumps(row))
+    # ragged edges: empty, one huge segment, all masked, n_seg off the tile
+    g = torch.Generator(device=dev).manual_seed(4)
+    for N, n_seg, p, one in ((0, 1000, 0.8, False), (1 << 20, 4096, 1.0, True),
+                             (100_000, 70_000, 0.0, False), (300_000, 1_000_003, 0.7, False)):
+        vals = torch.rand(N, generator=g, device=dev) * 10
+        segs = torch.randint(0, n_seg, (N,), generator=g, device=dev, dtype=torch.int32)
+        if one:
+            # a million-lane sum rounds at each add: integer values keep it
+            # exact in any order, so it holds bitwise against the atomics
+            segs = torch.full_like(segs, n_seg // 3)
+            vals = vals.floor()
+        mask = torch.rand(N, generator=g, device=dev) < p
+        init = torch.rand(n_seg, generator=g, device=dev) * 10
+        for op in ("sum", "count", "max", "min"):
+            for it in (None, init):
+                name = f"segment_reduce ragged N={N} n_seg={n_seg} p={p} op={op}"
+                got = seg.segment_reduce(vals, segs, mask, n_seg, op=op, init=None if one else it)
+                want = ref.segment_reduce_ref(vals, segs, mask, n_seg, op=op,
+                                              init=None if one else it)
+                if op == "sum" and not one:
+                    assert_close(name, got, want, SEG_SUM_RTOL)
+                else:
+                    assert_equal(name, got, want)
+                cpu = ref.segment_reduce_ref(vals.cpu(), segs.cpu(), mask.cpu(), n_seg, op=op,
+                                             init=None if one else _to_cpu(it))
+                assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
+    log("segment_reduce: empty, one huge segment, all-masked and ragged edges equal")
+    return dict(max(rows, key=lambda r: r["bound_ms"]),
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def check_crdt_merge(dev, calls: dict) -> dict:
+    from repro_torch.kernels import crdt_merge, ops, ref
+
+    def row_for(name, stack, op, library):
+        stack = stack.contiguous()
+        got = crdt_merge.crdt_merge(stack, op)
+        err = assert_equal(name, got, ref.crdt_merge_ref(stack, op))
+        row = {"shape": name, "max_abs_err": err,
+               "ms": cuda_ms(lambda: crdt_merge.crdt_merge(stack, op)),
+               "plain_ms": cuda_ms(lambda: ref.crdt_merge_ref(stack, op)),
+               "library_ms": cuda_ms(library)}
+        row.update(wrapper_host_us(crdt_merge.MERGE_KERNEL, lambda: ops.crdt_merge(stack, op)))
+        # bytes: the stack read once and the join written; one join per element
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes(stack, got), stack.numel())
+        log(json.dumps(row))
+        return row
+
+    rows = {}
+    # the main path: the keyed progress exchange (mesh.pmax, once a round)
+    # and the delta merges' metadata joins
+    for tag in ("keyed", "q1_ratio", "q4", "q5", "q5_10k"):
+        for i, (args, kw) in enumerate(calls[tag]["crdt_merge"]):
+            stack, op = args
+            name = f"crdt_merge {tag} call {i} R={stack.shape[0]} F={stack.shape[1]} {stack.dtype} {op}"
+            rows[(tag, i)] = row_for(name, stack, op, lambda: stack.amax(0))
+    # one shard's keyed state (16 slots x 62,500 keys, 4 MB) as a replicated
+    # join would see it
+    g = torch.Generator(device=dev).manual_seed(5)
+    big = torch.rand((S, 1 << 20), generator=g, device=dev)
+    row_for(f"crdt_merge R={S} F={1 << 20} float32 max", big, "max", lambda: big.amax(0))
+    # every dtype and join, R = 1, F off the block
+    for R, F in ((1, 1000), (S, 257), (3, 100_000)):
+        for dtype, op in ((torch.float32, "min"), (torch.int32, "max"), (torch.int32, "min"),
+                          (torch.uint8, "or"), (torch.uint8, "max"), (torch.bool, "or")):
+            x = torch.randint(-1000, 1000, (R, F), generator=g, device=dev)
+            x = x.remainder(256).to(dtype) if dtype in (torch.uint8, torch.bool) else x.to(dtype)
+            want = x.any(0) if dtype == torch.bool else ref.crdt_merge_ref(x, op)
+            assert_equal(f"crdt_merge R={R} F={F} {dtype} {op}", ops.crdt_merge(x, op), want)
+    log("crdt_merge: every dtype and join bitwise equal, R = 1 and ragged F included")
+    return dict(rows[("keyed", 0)], max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the dataplane at full size
 # ---------------------------------------------------------------------------
@@ -401,14 +579,12 @@ def check_against_oracle(q, log_, oks, vals, first: int) -> int:
 def run_pipeline(q, mesh, log_, delta: bool, first: int, n: int):
     """One warm-up sync round, then the timed run of the whole log, with
     every kernel's launch count set to 0 just before it."""
-    from repro_torch.kernels import ops
     from repro_torch.launch.stream import build_pipeline
     from repro_torch.obs.timing import WallTimer
 
     pipe = build_pipeline(q, mesh, SYNC_EVERY, delta_sync=delta, n_windows=n, first_window=first)
     pipe(log_.map(lambda x: x[:, :SYNC_EVERY]))  # warm-up: one sync round
-    for kern in ops.KERNELS.values():
-        kern.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with WallTimer(mesh.device) as tm:
         out = pipe(log_)
@@ -444,12 +620,11 @@ def run_dataplane(dev):
         q = MAKERS[qn](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS)
         first, n = read_window_range(q, horizon)
         (oks, vals, sb), dt, peak = run_pipeline(q, mesh, the_log, delta, first, n)
-        counts = {k: kern.launches for k, kern in ops.KERNELS.items()}
-        uses = {"window_agg": qn != "q7", "topk_window": qn == "q7",
-                "gated_delta_merge": delta and qn in ("q1_ratio", "q4", "q5")}
+        used = {"topk_window"} if qn == "q7" else {"window_agg"}
+        if delta and qn in ("q1_ratio", "q4", "q5"):
+            used |= {"gated_delta_merge", "crdt_merge"}
+        counts = check_launches(qn, used)
         for k, c in counts.items():
-            if uses[k] != (c > 0):
-                raise AssertionError(f"{qn}: kernel {k} launched {c} times")
             launches[k] += c
         done = check_against_oracle(q, the_log, oks, vals, first)
         need = 7 if qn == "q5" else 4
@@ -476,39 +651,244 @@ def run_dataplane(dev):
     return results, launches
 
 
-def profile_share(dev) -> None:
-    """Device busy share of q4 and q7 over 64 batches, from a
+def profile_run(name: str, fn) -> dict:
+    """Device busy share of one run of ``fn`` (after a warm one), from a
     ``torch.profiler`` trace: the sum of device-side event times (kernels,
     copies, fills; one stream, so they do not overlap) over the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    # the torch ops whose own kernels take the device time, by name
+    by_op = sorted((e for e in events if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    row = {"profile": name, "batches": 64, "wall_us": wall_us, "device_busy_us": busy,
+           "device_idle_share": 1 - busy / wall_us if busy else None,
+           "top_kernels_us": [[e.key[:90], e.self_device_time_total] for e in top],
+           "top_ops_device_us": [[e.key, e.self_device_time_total, e.count] for e in by_op[:10]]}
+    log(json.dumps(row))
+    return row
+
+
+def profile_share(dev) -> None:
+    """Device busy share of q4 and q7 over 64 batches."""
     from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.launch.stream import MAKERS, build_pipeline
     from repro_torch.streaming.generator import NexmarkConfig, generate_log
 
-    nb = 64
-    nx = NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=B,
+    nx = NexmarkConfig(num_partitions=S, num_batches=64, events_per_batch=B,
                        rate_per_partition=RATE, seed=SEED)
     part = generate_log(nx, dev)
     for qn in ("q4", "q7"):
         q = MAKERS[qn](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS)
         pipe = build_pipeline(q, make_data_mesh(S, dev), SYNC_EVERY, n_windows=1)
-        pipe(part)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pipe(part)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows)
-        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-        log(json.dumps({
-            "profile": qn, "batches": nb, "wall_us": wall_us, "device_busy_us": busy,
-            "device_idle_share": 1 - busy / wall_us if busy else None,
-            "top_kernels_us": {e.key[:60]: e.self_device_time_total for e in top},
-        }))
+        profile_run(qn, lambda: pipe(part))
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import ops
+
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+
+
+def check_launches(run: str, used: set) -> dict:
+    """Each kernel's launches since the last reset; raises unless exactly
+    the kernels in ``used`` were launched."""
+    from repro_torch.kernels import ops
+
+    counts = {k: kern.launches for k, kern in ops.KERNELS.items()}
+    for k, c in counts.items():
+        if (k in used) != (c > 0):
+            raise AssertionError(f"{run}: kernel {k} launched {c} times")
+    return counts
+
+
+def host_shuffle_bytes(shards, log_, nb: int) -> np.ndarray:
+    """The keyed run's shuffle bytes, counted apart from the dataplane: per
+    source partition and batch, its bids owned by another partition, from
+    the auction ids; then 8 bytes each, added up batch by batch in f32 on
+    the host, as the dataplane's f32 counter adds them."""
+    from repro_torch.streaming.events import KIND_BID
+
+    p = torch.arange(S, device=log_.ts.device)[:, None, None]
+    sent = []
+    for b0 in range(0, nb, 128):
+        sl = slice(b0, min(b0 + 128, nb))
+        owner = (log_.auction[:, sl] * shards.mult % shards.num_keys) % S
+        bid = log_.valid[:, sl] & (log_.kind[:, sl] == KIND_BID)
+        sent.append((bid & (owner != p)).sum(-1))
+    sent = torch.cat(sent, 1).cpu().numpy()  # [S, nb]
+    acc = np.zeros(S, np.float32)
+    for t in range(nb):
+        acc = acc + sent[:, t].astype(np.float32) * np.float32(8.0)
+    return acc
+
+
+def run_keyed(dev) -> tuple[list, dict]:
+    """Phase 4, keyed: the hash-sharded dataplane at full size, its chaos
+    schedules, and dense q5 at 10,000 auctions; returns the result rows and
+    each kernel's launches."""
+    from repro_torch.core.wcrdt import KeyShards
+    from repro_torch.core.window import as_assigner
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.stream import (
+        MAKERS, build_keyed_pipeline, default_fold_schedule, read_window_range,
+    )
+    from repro_torch.obs.timing import WallTimer
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+    from repro_torch.streaming.queries import q5_hot_oracle
+
+    nx = NexmarkConfig(num_partitions=S, num_batches=NUM_BATCHES, events_per_batch=B,
+                       rate_per_partition=RATE, seed=SEED, num_auctions=NUM_KEYS,
+                       key_skew=KEY_SKEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    klog = generate_log(nx, dev)
+    torch.cuda.synchronize()
+    log(f"keyed log: {S * NUM_BATCHES * B} events over {NUM_KEYS} zipf({KEY_SKEW}) ids, "
+        f"{sum(nbytes(getattr(klog, f.name)) for f in dataclasses.fields(klog)) / 1e9:.2f} GB, "
+        f"made in {time.perf_counter() - t0:.2f} s; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    mesh = make_data_mesh(S, dev)
+    shards = KeyShards(NUM_KEYS, S)
+    table = shards.key_table(dev)
+    assigner = as_assigner(WINDOW_MS, WINDOW_MS // 2)
+    launches, results = {}, []
+
+    def pipeline(nb: int, **kw):
+        n = int(assigner.first_dirty_wid(nb * nx.batch_span_ms)) + 1  # + the open window
+        return build_keyed_pipeline(mesh, shards, window_len=WINDOW_MS, num_slots=KEYED_SLOTS,
+                                    sync_every=SYNC_EVERY, n_windows=n, first_window=0, **kw)
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+
+    # (a) the full-size run, twice
+    sched = default_fold_schedule(S, NUM_BATCHES)
+    rounds = NUM_BATCHES // SYNC_EVERY
+    wm = torch.ones(rounds, dtype=torch.bool)
+    pipe = pipeline(NUM_BATCHES)
+    pipe.fold(klog, sched[:, :SYNC_EVERY], wm[:1])  # warm-up: one sync round
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with WallTimer(dev) as tm:
+            state, shuffle, sync, _ = pipe.fold(klog, sched, wm)
+            oks, vals = pipe.read(state, table)
+        counts = check_launches("keyed", {"segment_reduce", "crdt_merge"})
+        add(counts)
+        runs.append((state, oks, vals, shuffle, sync))
+        row = {"query": "q5_keyed", "sync": "watermark", "events": S * NUM_BATCHES * B,
+               "seconds": tm.dt, "events_per_s": S * NUM_BATCHES * B / tm.dt,
+               "shuffle_bytes_per_step": shuffle.mean().item() / NUM_BATCHES,
+               "sync_bytes_per_round": sync.mean().item() / rounds,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+        results.append(row)
+    if counts["segment_reduce"] != NUM_BATCHES or counts["crdt_merge"] != rounds:
+        raise AssertionError(f"keyed: launches {counts}, expected one fold a step, one join a round")
+    if not bool((oks == oks[:1]).all()):
+        raise AssertionError("keyed: shards disagree on which windows are complete")
+    done = 0
+    for j in range(oks.shape[1]):
+        if bool(oks[0, j]):
+            done += 1
+            want = q5_hot_oracle(klog, j, assigner, NUM_KEYS).reshape(1, 2).expand(S, -1)
+            assert_equal(f"keyed window {j} (q5_hot_oracle)", vals[:, j], want)
+    if done < 7:
+        raise AssertionError(f"keyed: {done} complete windows, expected 7")
+    want_shuffle = host_shuffle_bytes(shards, klog, NUM_BATCHES)
+    if not np.array_equal(shuffle.cpu().numpy(), want_shuffle):
+        raise AssertionError(f"keyed shuffle bytes {shuffle.tolist()} != host {want_shuffle}")
+    if not bool((sync == rounds * S * 4.0).all()):
+        raise AssertionError(f"keyed sync bytes {sync.tolist()} != {rounds} rounds x {S * 4}")
+    (s1, *o1), (s2, *o2) = runs
+    same_state(s1, s2, "keyed: a second run")
+    for a, b_ in zip(o1, o2):
+        if not torch.equal(a, b_):
+            raise AssertionError("keyed: a second run's outputs differ")
+    for row in results:
+        row["complete_windows"] = done
+        log(json.dumps(row))
+    log(f"keyed: {done} complete windows equal q5_hot_oracle on all {S} shards; shuffle bytes "
+        f"equal the host count; a second run is byte identical")
+    del runs, s1, s2, state
+
+    # (b) chaos at SHORT_BATCHES on the same log
+    nb = SHORT_BATCHES
+    base = default_fold_schedule(S, nb)
+    short = pipeline(nb)
+    clean = short.fold(klog, base, torch.ones(nb // SYNC_EVERY, dtype=torch.bool))
+    clean_out = short.read(clean[0], table)
+    if clean_out[0].sum() < S:
+        raise AssertionError("chaos: the clean run has no complete window")
+    k = CRASH_AFTER + 1
+    crash = torch.cat([torch.arange(k), torch.arange(REPLAY_FROM, k), torch.arange(k, nb)])
+    crash = crash.to(torch.int32).expand(S, -1).contiguous()
+    cut = torch.ones(nb // SYNC_EVERY, dtype=torch.bool)
+    cut[PARTITIONED[0]:PARTITIONED[1]] = False
+    for name, sch, plane in (("crash-replay", crash,
+                              torch.ones(crash.shape[1] // SYNC_EVERY, dtype=torch.bool)),
+                             ("partition healed", base, cut)):
+        st, *_ = short.fold(klog, sch, plane)
+        same_state(st, clean[0], f"chaos {name}")
+        for a, b_ in zip(short.read(st, table), clean_out):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"chaos {name}: outputs differ from the clean run")
+    st, *_ = short.fold(klog, base, torch.zeros(nb // SYNC_EVERY, dtype=torch.bool))
+    if short.read(st, table)[0].sum() != 0:
+        raise AssertionError("chaos: a plane never healed emitted a window")
+    log(f"chaos ({nb} batches): crash-replay and a healed partition end byte identical to the "
+        f"clean run ({int(clean_out[0][0].sum())} complete windows); a plane never healed "
+        "emits none")
+
+    # profile: 64 batches of the keyed run
+    prof_pipe = pipeline(64)
+    prof = profile_run("q5_keyed", lambda: prof_pipe.fold(
+        klog, base[:, :64], torch.ones(64 // SYNC_EVERY, dtype=torch.bool)))
+    del klog
+
+    # (c) dense q5 at 10,000 auctions, zipf ids: its fold takes the segment reduce
+    qx = dataclasses.replace(nx, num_batches=SHORT_BATCHES, num_auctions=DENSE_Q5_KEYS,
+                             seed=SEED + 2)
+    qlog = generate_log(qx, dev)
+    q = MAKERS["q5"](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS, num_auctions=DENSE_Q5_KEYS)
+    first, n = read_window_range(q, SHORT_BATCHES * qx.batch_span_ms)
+    (oks, vals, sb), dt, peak = run_pipeline(q, mesh, qlog, True, first, n)
+    counts = check_launches("q5_10k", {"segment_reduce", "gated_delta_merge", "crdt_merge"})
+    add(counts)
+    done = check_against_oracle(q, qlog, oks, vals, first)
+    if done < 1:
+        raise AssertionError("q5_10k: no complete window")
+    n_ev = S * SHORT_BATCHES * B
+    row = {"query": "q5_10k", "sync": "delta", "events": n_ev, "seconds": dt,
+           "events_per_s": n_ev / dt, "complete_windows": done,
+           "sync_bytes_per_round": sb.mean().item() / (SHORT_BATCHES // SYNC_EVERY),
+           "peak_gb": peak / 1e9, "launches": counts}
+    results.append(row)
+    log(json.dumps(row))
+    return results, launches, prof
+
+
+def same_state(a, b, what: str) -> None:
+    from repro_torch.convert import wstate_to_numpy
+
+    other = wstate_to_numpy(b)
+    for k, x in wstate_to_numpy(a).items():
+        if not np.array_equal(x, other[k]):
+            raise AssertionError(f"{what}: state field {k} differs")
 
 
 def main() -> int:
@@ -545,12 +925,21 @@ def main() -> int:
         "window_agg": check_window_agg(dev, calls),
         "gated_delta_merge": check_gated_delta_merge(dev, calls),
         "topk_window": check_topk_window(dev, calls["q7"]),
+        "segment_reduce": check_segment_reduce(dev, calls),
+        "crdt_merge": check_crdt_merge(dev, calls),
     }
+    del calls
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"== phase 4: dataplane, S={S} partitions x {RATE:.0f} ev/s, B={B}, "
         f"window {WINDOW_MS} ms, {NUM_BATCHES} batches")
     results, launches = run_dataplane(dev)
     profile_share(dev)
+    log(f"dense runs done at {time.perf_counter() - t_start:.1f} s")
+    keyed_results, keyed_launches, _ = run_keyed(dev)
+    results += keyed_results
+    for k, c in keyed_launches.items():
+        launches[k] += c
 
     log(f"== phase 5: throughput {card}")
     for r in results:
@@ -558,7 +947,8 @@ def main() -> int:
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
 
     src = {"window_agg": "window_agg.py:90", "gated_delta_merge": "crdt_merge.py:96",
-           "topk_window": "topk_window.py:46"}
+           "topk_window": "topk_window.py:46", "segment_reduce": "segment_reduce.py:76",
+           "crdt_merge": "crdt_merge.py:35"}
     kernels = []
     for k, row in kernel_rows.items():
         kernels.append({
@@ -568,6 +958,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "host_us": row["host_us"],
             "launch_us": row["launch_us"], "shape": row["shape"],
+            **{k_: row[k_] for k_ in ("sort_ms", "wrapper_ms") if k_ in row},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

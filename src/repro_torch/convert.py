@@ -29,6 +29,12 @@ def event_batch_from_numpy(arrays: dict, device="cpu") -> EventBatch:
                          for f in dataclasses.fields(EventBatch)})
 
 
+def key_table_from_numpy(table, device="cpu") -> torch.Tensor:
+    """A ``KeyShards.key_table`` of the JAX package (u32 ``[S, width]``) as
+    the port's int64 table."""
+    return _tensor(table, device)
+
+
 def wstate_from_numpy(spec: WSpec, arrays: dict, device="cpu") -> WState:
     """A stacked ``WState`` from numpy arrays: ``slot_wid``, ``progress``,
     ``folded``, ``errors`` and ``windows.<field>`` per CRDT field.  An

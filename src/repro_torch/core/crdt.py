@@ -40,13 +40,15 @@ def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
     S, W, P = rows_state.shape[:3]
     key_shape = rows_state.shape[3:]
     C = math.prod(key_shape)
+    args = (amounts.to(torch.float32).contiguous(), _i32(slot_ids), mask.contiguous(), W)
+    if P == 1:  # one actor row (the keyed and local counters): fold it whole
+        out = ops.window_agg(*args, op=op, keys=_i32(keys), C=C,
+                             init=rows_state.reshape(S, W, C).contiguous())
+        return out.reshape(rows_state.shape)
     rows = torch.arange(S, device=rows_state.device)
     actor = _per_replica(actor, S, rows_state.device)
     init = rows_state[rows, :, actor].reshape(S, W, C)
-    out = ops.window_agg(
-        amounts.to(torch.float32).contiguous(), _i32(slot_ids), mask.contiguous(), W,
-        op=op, keys=_i32(keys), C=C, init=init,
-    )
+    out = ops.window_agg(*args, op=op, keys=_i32(keys), C=C, init=init)
     new = rows_state.clone()
     new[rows, :, actor] = out.reshape(S, W, *key_shape)
     return new

@@ -8,9 +8,11 @@ batch frontier ``folded[P]`` and monotone error counters.
 Every state here is *stacked*: each tensor has a leading replica axis
 ``[S]`` and replica ``s`` is the state one partition holds, so one GPU runs
 the ``S`` replicas that the JAX package spreads over the ``data`` mesh.
-``insert`` folds replica ``s``'s own batch row as ``partition[s]``; the
-sync functions take the replica stack as their gathered input.  Semantics
-are those of the JAX package, function by function.
+``insert`` folds replica ``s``'s own batch row as ``partition[s]`` (or,
+in the keyed dataplane, each lane as its own source partition); the sync
+functions take the replica stack as their gathered input.  The last
+section holds the hash-sharded keyed state (``KeyShards``).  Semantics are
+those of the JAX package, function by function.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core.lattice import (
 )
 from repro_torch.core.window import Tumbling, WindowAssigner, expand_events
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import lex_sort
 
 NO_WID = -1
 I32_MAX = 2**31 - 1
@@ -34,6 +37,7 @@ ERR_LATE = 0  # events older than the partition's own watermark
 ERR_RING = 1  # events whose window had already been evicted from the ring
 ERR_EVICT_INCOMPLETE = 2  # slot reused before its window completed
 NUM_ERRS = 3
+SCATTER_ROWS = 4096  # rows each replica's lanes split into for a scatter-max (insert)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,32 +129,59 @@ def _expand_payload(x, B: int, K: int):
     return x
 
 
+def _scatter_max(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``base.scatter_reduce(1, idx, src, "amax")`` for ``[S, n]`` cells and
+    ``[S, L]`` lanes.  A batch's lanes crowd into a few cells (one or two
+    ring slots, one frontier entry per source), and on the card an integer
+    scatter-max is a compare-and-swap loop that serialises on a shared
+    cell; so each replica's lanes scatter as up to ``SCATTER_ROWS`` rows of
+    their own, joined after (the same max)."""
+    S, L = idx.shape
+    G = math.gcd(L, SCATTER_ROWS)
+    if G == 1:
+        return base.scatter_reduce(1, idx, src, "amax")
+    rows = base.repeat_interleave(G, 0).scatter_reduce(
+        1, idx.reshape(S * G, -1), src.reshape(S * G, -1), "amax")
+    return rows.reshape(S, G, -1).amax(1)
+
+
+def _lane_index(x, S: int, device) -> torch.Tensor:
+    """A partition or batch index per replica (an int or ``[S]``, as
+    ``[S, 1]``) or per lane (``[S, B]``, as it is): i64, broadcasting over
+    the batch's lanes."""
+    if isinstance(x, torch.Tensor) and x.dim() == 2:
+        return x.to(device=device, dtype=torch.int64)
+    return _per_replica(x, S, device).unsqueeze(1)
+
+
 def insert(
     spec: WSpec, state: WState, partition, ts: torch.Tensor, mask: torch.Tensor,
     batch_idx=None, **inputs
 ) -> WState:
     """Fold each replica's batch (``ts``, ``mask`` and payload ``inputs``,
-    all ``[S, B]``) into its window ring as ``partition`` (an int, or
-    ``[S]``).
+    all ``[S, B]``) into its window ring as ``partition``: an int, ``[S]``,
+    or ``[S, B]`` per lane (the keyed dataplane, whose owners fold lanes
+    routed from every source partition).
 
-    Events below the partition's own watermark are dropped and counted
+    Events below their partition's own watermark are dropped and counted
     (ERR_LATE); slot reuse resets the slot's CRDT to zero first; events for
     evicted windows are dropped and counted (ERR_RING).  Under an
     overlapping assigner each event expands into ``windows_per_event``
-    lanes.  With ``batch_idx`` the fold is a no-op unless
-    ``batch_idx >= folded[partition]`` (replay idempotence).
+    lanes.  With ``batch_idx`` (same forms as ``partition``) a lane folds
+    only if ``batch_idx >= folded[partition]`` (replay idempotence), and
+    ``folded[partition]`` rises to ``batch_idx + 1`` for every lane, masked
+    or not.
     """
     S = ts.shape[0]
     W = spec.num_slots
     dev = ts.device
-    rows = torch.arange(S, device=dev)
-    part = _per_replica(partition, S, dev)
+    part = _lane_index(partition, S, dev)
     ts = ts.to(torch.int32)
     if batch_idx is not None:
-        bidx = _per_replica(batch_idx, S, dev).to(torch.int32)
-        mask = mask & (bidx >= state.folded[rows, part]).unsqueeze(1)
+        bidx = _lane_index(batch_idx, S, dev).to(torch.int32)
+        mask = mask & (bidx >= state.folded.gather(1, part))
 
-    late = mask & (ts < state.progress[rows, part].unsqueeze(1))
+    late = mask & (ts < state.progress.gather(1, part))
     mask = mask & ~late
     n_late = late.sum(1)
 
@@ -162,13 +193,10 @@ def insert(
         wid, mask = expand_events(spec.assigner, ts, mask)
         inputs = {k: _expand_payload(v, B, K) for k, v in inputs.items()}
     slot = torch.remainder(wid, W)
+    slot64 = slot.to(torch.int64)
 
     # newest incoming window id per slot (masked lanes contribute NO_WID)
-    inc_wid = torch.where(mask, wid, NO_WID)
-    seg_max = torch.full((S, W), NO_WID, dtype=torch.int32, device=dev).scatter_reduce(
-        1, slot.to(torch.int64), inc_wid, "amax"
-    )
-    new_slot_wid = torch.maximum(state.slot_wid, seg_max)
+    new_slot_wid = _scatter_max(state.slot_wid, slot64, torch.where(mask, wid, NO_WID))
 
     # reset slots whose tenant window advances; flag evictions of windows
     # that were not complete yet
@@ -181,7 +209,7 @@ def insert(
     )
 
     # valid events belong to the (new) tenant window of their slot
-    stale = mask & (wid < new_slot_wid.gather(1, slot.to(torch.int64)))
+    stale = mask & (wid < new_slot_wid.gather(1, slot64))
     valid = mask & ~stale
     n_ring = stale.sum(1)
 
@@ -199,8 +227,7 @@ def insert(
     ).to(torch.int32)
     folded = state.folded
     if batch_idx is not None:
-        folded = folded.clone()
-        folded[rows, part] = torch.maximum(folded[rows, part], bidx + 1)
+        folded = _scatter_max(folded, *torch.broadcast_tensors(part, bidx + 1))
     return WState(new_slot_wid, windows, state.progress, folded, errors)
 
 
@@ -350,11 +377,11 @@ def merge_delta_stack(spec: WSpec, stacked: WState) -> WState:
         for name, kind in kinds.items()
     }
     return WState(
-        slot_wid=wid.amax(0),
+        slot_wid=ops.crdt_merge(wid, "max"),
         windows=type(stacked.windows)(**merged),
-        progress=stacked.progress.amax(0),
-        folded=stacked.folded.amax(0),
-        errors=stacked.errors.amax(0),
+        progress=ops.crdt_merge(stacked.progress, "max"),
+        folded=ops.crdt_merge(stacked.folded, "max"),
+        errors=ops.crdt_merge(stacked.errors, "max"),
     )
 
 
@@ -458,3 +485,122 @@ def wgset(window_len: int, num_slots: int, num_partitions: int, domain: int,
         fold=lambda w, s, m, elems: w.fold_windows(s, m, elems),
         read=lambda w, slot: w.window_value(slot),
     )
+
+
+# ---------------------------------------------------------------------------
+# Hash-sharded keyed state (docs/protocol.md §6)
+# ---------------------------------------------------------------------------
+
+
+def _shard_multiplier(num_keys: int) -> int:
+    """Largest ``a`` with ``a * num_keys < 2**31`` and ``gcd(a, num_keys) == 1``,
+    so ``p(k) = (k * a) % num_keys`` is an i32-safe bijection on [0, C)."""
+    a = max((2**31 - 1) // num_keys, 1)
+    while math.gcd(a, num_keys) != 1:
+        a -= 1
+    return a
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyShards:
+    """Hash routing of a keyed domain [0, C) over S owner shards
+    (docs/protocol.md §6).
+
+    The hash is the multiplicative permutation ``p(k) = (k * mult) % C``;
+    ``owner = p % S`` spreads consecutive (zipf-hot) keys across shards and
+    ``local = p // S`` is a dense index into the owner's ``ceil(C/S)`` key
+    range.  :meth:`key_table` is the inverse, ``(shard, local) -> key``.
+    Key ids are u32 values carried as int64."""
+
+    num_keys: int  # C, the global keyed domain size
+    num_shards: int  # S, owner shards (the stacked partitions)
+    mult: int = 0  # permutation multiplier; 0 = derive in __post_init__
+
+    def __post_init__(self):
+        if self.mult == 0:
+            object.__setattr__(self, "mult", _shard_multiplier(self.num_keys))
+
+    @property
+    def width(self) -> int:
+        """Local key-range size ``ceil(C/S)``: every shard's state is padded
+        to it."""
+        return -(-self.num_keys // self.num_shards)
+
+    def perm(self, keys: torch.Tensor) -> torch.Tensor:
+        return (keys.to(torch.int64) * self.mult) % self.num_keys
+
+    def shard_of(self, keys: torch.Tensor) -> torch.Tensor:
+        """Owner shard id per key (the hash-routing rule)."""
+        return self.perm(keys) % self.num_shards
+
+    def local_of(self, keys: torch.Tensor) -> torch.Tensor:
+        """Dense index into the owner's local key range."""
+        return torch.div(self.perm(keys), self.num_shards, rounding_mode="floor")
+
+    def num_local(self, shard: int) -> int:
+        """Real (unpadded) key count of ``shard``'s range."""
+        return (self.num_keys - shard + self.num_shards - 1) // self.num_shards
+
+    def key_table(self, device=None) -> torch.Tensor:
+        """i64 ``[S, width]`` inverse map ``(shard, local) -> key``; padded
+        entries (locals past the shard's real range) carry the sentinel C."""
+        C, S = self.num_keys, self.num_shards
+        keys = torch.arange(C, dtype=torch.int64, device=device)
+        inv = torch.empty_like(keys)
+        inv[self.perm(keys)] = keys
+        p = (torch.arange(S, dtype=torch.int64, device=device).unsqueeze(1)
+             + S * torch.arange(self.width, dtype=torch.int64, device=device))
+        return torch.where(p < C, inv[p.clamp(max=C - 1)], C)
+
+
+def wgcounter_sharded(window_len: int, num_slots: int, num_partitions: int,
+                      shards: KeyShards, assigner: WindowAssigner | None = None) -> WSpec:
+    """Keyed grow-only counter over one shard's key range
+    (docs/protocol.md §6).
+
+    Per replica the state is ``[W, 1, width]``: the key axis holds only the
+    shard's ``ceil(C/S)`` locals and the actor axis collapses to 1, because
+    every event for a key is routed to its one owner.  ``progress`` and
+    ``folded`` keep all ``num_partitions`` source entries.  Fold inputs:
+    ``amounts`` per lane and ``keys`` = local indices
+    (:meth:`KeyShards.local_of`)."""
+    return WSpec(
+        window_len=window_len, assigner=assigner, num_slots=num_slots,
+        num_partitions=num_partitions,
+        zero_windows=lambda device: crdts.GCounter.zero_windows(
+            num_slots, 1, (shards.width,), device),
+        fold=lambda w, s, m, amounts, keys: w.fold_windows(s, m, 0, amounts, keys),
+        read=lambda w, slot: w.window_value(slot),
+    )
+
+
+def shard_topk_read(spec: WSpec, state: WState, wid: int, key_table: torch.Tensor,
+                    num_keys: int, mesh, k: int = 1):
+    """Cross-shard top-k read of window ``wid`` over a sharded keyed counter
+    (docs/protocol.md §6), without gathering the key ranges.
+
+    Each shard reduces its ``[width]`` range to k ``(count, key)``
+    candidates (padded locals masked through the ``key_table`` sentinel),
+    the ``[S, k]`` candidates are gathered, and the global top k is chosen
+    by (count desc, global key asc).  Returns ``((counts f32[S, k], keys
+    i64[S, k]), ok bool[S])``, the same on every shard; ``ok`` requires the
+    window complete and unevicted on every shard."""
+    counts, ok = window_value(spec, state, wid)  # [S, width]
+    S = counts.shape[0]
+    masked = torch.where(key_table < num_keys, counts, float("-inf"))
+    if k == 1:
+        cmax = masked.amax(1, keepdim=True)
+        ckey = torch.where(masked == cmax, key_table, num_keys).amin(1)
+        cand_c, cand_k = mesh.all_gather(cmax.squeeze(1)), mesh.all_gather(ckey)  # [S]
+        gmax = cand_c.amax()
+        gkey = torch.where(cand_c == gmax, cand_k, num_keys).amin()
+        top = (gmax.reshape(1), gkey.reshape(1))
+    else:
+        # lax.top_k: ties to the lower local index, so a stable sort
+        cv, ci = torch.sort(masked, dim=1, descending=True, stable=True)
+        cv, ci = cv[:, :k], ci[:, :k]
+        ck = torch.where(cv > float("-inf"), key_table.gather(1, ci), num_keys)
+        sv, sk = lex_sort(-mesh.all_gather(cv).reshape(-1), mesh.all_gather(ck).reshape(-1))
+        top = (-sv[:k], sk[:k])
+    every = ok.all().expand(S)
+    return (top[0].expand(S, k), top[1].expand(S, k)), every

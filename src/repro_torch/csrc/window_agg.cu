@@ -5,8 +5,12 @@
 // fold of GCounter, PNCounter, MaxReg and MinReg.
 //
 // Computes, per replica s and cell c = slot * C + key of a [W, C] grid,
-//   out[s, c] = init[s, c] (+ | max | min) fold_{lanes l of s in order} v[s, l]
-// over the lanes with mask[s, l] and slots[s, l] * C + keys[s, l] == c.
+//   out[s, c] = fold_{lanes l of s in order} v[s, l], starting from init[s, c]
+// (or the op's neutral element), over the lanes with mask[s, l] and
+// slots[s, l] * C + keys[s, l] == c.  A float sum thus adds the same terms
+// in the same order as a sequential scatter-add into the running state.
+// A count counts the batch's lanes from zero and adds init once, as the
+// JAX package's kernels do.
 //
 // Bound on this card: the function reads each lane once (13 bytes: value,
 // slot, key, mask) and writes W*C floats per replica, so it is bound by
@@ -63,6 +67,7 @@ __global__ void __launch_bounds__(kCells) window_agg_kernel(
   const size_t row = (size_t)s * L;
 
   float acc = neutral<OP>();
+  if (OP != kCount && init && cell < n_cells) acc = init[(size_t)s * n_cells + cell];
   for (int base = 0; base < L; base += kTile) {
     int hit = 0;
     for (int j = threadIdx.x; j < kTile; j += kCells) {
@@ -80,18 +85,14 @@ __global__ void __launch_bounds__(kCells) window_agg_kernel(
     if (__syncthreads_or(hit)) {
       const int n = min(kTile, L - base);
       for (int j = 0; j < n; ++j) {
-        if (OP == kSum || OP == kCount) {
-          acc += s_cell[j] == cell ? s_val[j] : 0.0f;
-        } else {
-          acc = combine<OP>(acc, s_cell[j] == cell ? s_val[j] : neutral<OP>());
-        }
+        if (s_cell[j] == cell) acc = combine<OP>(acc, s_val[j]);
       }
     }
     __syncthreads();
   }
   if (cell < n_cells) {
     const size_t o = (size_t)s * n_cells + cell;
-    out[o] = init ? combine<OP>(acc, init[o]) : acc;
+    out[o] = (OP == kCount && init) ? acc + init[o] : acc;
   }
 }
 

@@ -11,17 +11,20 @@ import torch
 
 from repro_torch.kernels import crdt_merge as _merge
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import segment_reduce as _seg
 from repro_torch.kernels import topk_window as _topk
 from repro_torch.kernels import window_agg as _agg
 
-# Keyed cardinality from which the JAX package routes a keyed fold to the
-# sorted segment-reduce kernel instead of the dense one-hot fold; that
-# kernel belongs to the keyed dataplane, which is not ported yet.
+# Keyed cardinality from which a keyed fold goes to the sorted
+# segment-reduce kernel instead of the dense one-hot fold: the dense fold
+# compares every lane with every cell of its tile, the sorted one does work
+# independent of C (as in the JAX package).
 SPARSE_KEY_THRESHOLD = 1024
 
 # every launched kernel, for launch accounting
 KERNELS = {"window_agg": _agg.KERNEL, "topk_window": _topk.KERNEL,
-           "gated_delta_merge": _merge.KERNEL}
+           "gated_delta_merge": _merge.KERNEL, "segment_reduce": _seg.KERNEL,
+           "crdt_merge": _merge.MERGE_KERNEL}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -31,14 +34,44 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def window_agg(
     vals, slots, mask, W: int, op: str = "sum", keys=None, C: int = 1, init=None,
 ) -> torch.Tensor:
-    """Per-replica windowed fold of ``[S, L]`` lanes into f32 ``[S, W, C]``."""
+    """Per-replica windowed fold of ``[S, L]`` lanes into f32 ``[S, W, C]``.
+
+    A keyed fold with ``C >= SPARSE_KEY_THRESHOLD`` runs as one segment
+    reduce over all ``S`` replicas, segment ``s*W*C + slot*C + key``."""
+    S = vals.shape[0]
     if keys is not None and C >= SPARSE_KEY_THRESHOLD:
-        raise NotImplementedError("segment_reduce: keyed slice")
+        n = S * W * C
+        if n >= 2**31:
+            raise ValueError(f"S*W*C = {n} overflows the kernel's i32 segment ids")
+        base = torch.arange(S, dtype=torch.int32, device=vals.device).unsqueeze(1) * (W * C)
+        segs = base + slots.to(torch.int32) * C + keys.to(torch.int32)
+        out = segment_reduce(vals.reshape(-1), segs.reshape(-1), mask.reshape(-1), n, op=op,
+                             init=None if init is None else init.reshape(-1))
+        return out.reshape(S, W, C)
     if W * C >= 2**31:
         raise ValueError(f"W*C = {W * C} overflows the kernel's i32 cell ids")
     if _on_cpu(vals):
         return _ref.window_agg_ref(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
     return _agg.window_agg(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
+
+
+def segment_reduce(vals, segs, mask, n_seg: int, op: str = "sum", init=None) -> torch.Tensor:
+    """Per-segment sum/count/max/min of ``[N]`` masked lanes, folded into
+    ``init`` f32 ``[n_seg]`` (or from the op's neutral element)."""
+    if _on_cpu(vals):
+        return _ref.segment_reduce_ref(vals, segs, mask, n_seg, op=op, init=init)
+    return _seg.segment_reduce(vals, segs, mask, n_seg, op=op, init=init)
+
+
+def crdt_merge(stack: torch.Tensor, op: str = "max") -> torch.Tensor:
+    """Join an ``[R, ...]`` replica stack over its first axis: ``[...]``.
+    Bool stacks join as uint8."""
+    if _on_cpu(stack):
+        return _ref.crdt_merge_ref(stack, op=op)
+    R, trailing = stack.shape[0], stack.shape[1:]
+    flat = stack.reshape(R, -1)
+    flat = flat.to(torch.uint8) if stack.dtype == torch.bool else flat.contiguous()
+    return _merge.crdt_merge(flat, op=op).to(stack.dtype).reshape(trailing)
 
 
 def gated_delta_merge(wid_stack, leaf_stack, op: str = "max") -> torch.Tensor:

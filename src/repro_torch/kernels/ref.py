@@ -14,6 +14,33 @@ from repro_torch.core.lattice import bitwise_or_reduce
 NEUTRAL = {"sum": 0.0, "count": 0.0, "max": float("-inf"), "min": float("inf")}
 
 
+def _fold_into(out: torch.Tensor, seg: torch.Tensor, v: torch.Tensor, mask, op: str):
+    """Fold lanes ``v`` into ``out[..., seg]`` in lane order, masked lanes
+    into the sentinel cell ``out[..., -1]``; in place."""
+    seg = torch.where(mask, seg, out.shape[-1] - 1)
+    if op in ("sum", "count"):
+        out.scatter_add_(-1, seg, torch.where(mask, v, 0.0))
+    elif op in ("max", "min"):
+        out.scatter_reduce_(-1, seg, v, "amax" if op == "max" else "amin")
+    else:
+        raise ValueError(op)
+    return out
+
+
+def _fold(lead: tuple, n: int, seg, v, mask, op: str, init) -> torch.Tensor:
+    """Fold lanes into ``[..., n]`` cells: a sum, max or min starts from
+    ``init`` (or the neutral element) and takes the lanes in lane order; a
+    count counts from zero and adds ``init`` once, as the JAX package's
+    kernels do.  One more cell takes the masked lanes and is dropped."""
+    out = torch.full((*lead, n + 1), NEUTRAL[op], dtype=torch.float32, device=v.device)
+    if init is not None and op != "count":
+        out[..., :n] = init.reshape(*lead, n)
+    out = _fold_into(out, seg, v, mask, op)[..., :n]
+    if init is not None and op == "count":
+        out = out + init.reshape(*lead, n)
+    return out
+
+
 def window_agg_ref(
     vals: torch.Tensor,  # f32[S, L]
     slots: torch.Tensor,  # i32[S, L] in [0, W)
@@ -25,9 +52,9 @@ def window_agg_ref(
     init: torch.Tensor | None = None,  # f32[S, W, C] running state
 ) -> torch.Tensor:
     """Fold each replica's masked lanes into per-(slot, key) sum, count, max
-    or min: f32 ``[S, W, C]``.  Masked lanes go to a sentinel cell past the
-    output; untouched cells hold the op's neutral element, and ``init``
-    joins afterwards (added for sum/count)."""
+    or min: f32 ``[S, W, C]``.  A sum folds into ``init`` in lane order on
+    the CPU, as the JAX package's live scatter-add does; untouched cells
+    hold ``init``, or the op's neutral element without it."""
     S, L = vals.shape
     n = W * C
     v = vals.to(torch.float32)
@@ -36,23 +63,37 @@ def window_agg_ref(
     seg = slots.to(torch.int64) * C
     if keys is not None:
         seg = seg + keys.to(torch.int64)
-    seg = torch.where(mask, seg, n)
-    out = torch.full((S, n + 1), NEUTRAL[op], dtype=torch.float32, device=vals.device)
-    if op in ("sum", "count"):
-        out.scatter_add_(1, seg, torch.where(mask, v, 0.0))
-    elif op in ("max", "min"):
-        out.scatter_reduce_(1, seg, v, "amax" if op == "max" else "amin")
-    else:
-        raise ValueError(op)
-    out = out[:, :n].reshape(S, W, C)
-    if init is not None:
-        if op in ("sum", "count"):
-            out = out + init
-        elif op == "max":
-            out = torch.maximum(out, init)
-        else:
-            out = torch.minimum(out, init)
-    return out
+    return _fold((S,), n, seg, v, mask, op, init).reshape(S, W, C)
+
+
+def segment_reduce_ref(
+    vals: torch.Tensor,  # [N] numeric
+    segs: torch.Tensor,  # i32[N] in [0, n_seg)
+    mask: torch.Tensor,  # bool[N]
+    n_seg: int,
+    op: str = "sum",
+    init: torch.Tensor | None = None,  # f32[n_seg] running state
+) -> torch.Tensor:
+    """f32 ``[n_seg]`` per-segment sum, count, max or min of the masked
+    lanes, joined with ``init`` as :func:`window_agg_ref` does; without
+    ``init`` untouched segments read the op's neutral element.  ``segs``
+    under a False mask may be garbage: those lanes go to a sentinel
+    segment."""
+    v = vals.to(torch.float32)
+    if op == "count":
+        v = torch.ones_like(v)
+    return _fold((), n_seg, segs.to(torch.int64), v, mask, op, init)
+
+
+def crdt_merge_ref(stack: torch.Tensor, op: str = "max") -> torch.Tensor:
+    """Lattice join of an ``[R, ...]`` replica stack over its first axis."""
+    if op == "max":
+        return stack.amax(0)
+    if op == "min":
+        return stack.amin(0)
+    if op == "or":
+        return bitwise_or_reduce(stack, 0)
+    raise ValueError(op)
 
 
 def gated_neutral(op: str, dtype: torch.dtype):

@@ -3,7 +3,9 @@
 In the JAX package each partition is one device of the ``data`` mesh axis.
 In the port each of ``S`` partitions is a row of a leading stacked axis on
 one device, and these collectives act on that axis: ``all_gather`` is the
-identity on the stack, ``pmax`` is ``amax(0)`` broadcast back to every row.
+identity on the stack, ``pmax`` is the replica-stack join (the
+``crdt_merge`` kernel) broadcast back to every row, and ``all_to_all`` is a
+``[S_src, S_dst, ...]`` transpose.
 The dataplane reaches replicas only through this interface, so a
 multi-device version can take its place without touching the dataplane.
 """
@@ -14,6 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.lattice import map_tensors
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +36,14 @@ class StackMesh:
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the replicas, broadcast back to each."""
-        return self.replicate(x.amax(0))
+        return self.replicate(ops.crdt_merge(x, "max"))
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Row ``s`` of ``x`` ``[S_src, S_dst, ...]`` sends block ``d`` to
+        replica ``d``: every replica's received blocks, ``[S_dst, S_src,
+        ...]`` (``lax.all_to_all`` with ``split_axis=0, concat_axis=0,
+        tiled=True`` on each device)."""
+        return x.transpose(0, 1).contiguous()
 
 
 def make_data_mesh(num_partitions: int, device="cuda") -> StackMesh:

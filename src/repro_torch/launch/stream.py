@@ -6,7 +6,9 @@ and top-k kernels, and every ``sync_every`` folds one background-sync
 round — delta-state by default (each replica's dirty slots, merged once by
 the gated delta-merge kernel and joined into every replica), or the
 full-state join with ``delta_sync=False``.  Windows are read on the device
-at the end.
+at the end.  :func:`build_keyed_pipeline` is the hash-sharded keyed
+dataplane: keys are routed to one owner partition each, folded by the
+segment-reduce kernel, and only watermarks are synced.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --query q4 --partitions 16
@@ -15,13 +17,15 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from repro_torch.core import wcrdt as W
+from repro_torch.core.window import as_assigner
 from repro_torch.launch.mesh import StackMesh, make_data_mesh
 from repro_torch.obs.timing import WallTimer
-from repro_torch.streaming.events import EventBatch
+from repro_torch.streaming.events import KIND_BID, EventBatch
 from repro_torch.streaming.generator import NexmarkConfig, generate_log
 from repro_torch.streaming.queries import (
     Query,
@@ -90,6 +94,128 @@ def build_pipeline(
         return torch.stack(oks, 1), torch.stack(vals, 1), sync_bytes
 
     return run
+
+
+def default_fold_schedule(num_shards: int, num_batches: int) -> torch.Tensor:
+    """Failure-free fold schedule for :func:`build_keyed_pipeline`: i32
+    ``[num_shards, num_batches]``, every partition folds batch ``t`` at step
+    ``t``.  A crash-replay splices a replay (``[0..k, j..k, k+1..]``) into a
+    partition's row; the ``folded`` frontier makes re-folds no-ops
+    (docs/protocol.md §6)."""
+    return torch.arange(num_batches, dtype=torch.int32).expand(num_shards, -1).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyedPipeline:
+    """The hash-sharded keyed dataplane that :func:`build_keyed_pipeline`
+    builds: ``fold`` runs the steps and sync rounds, ``read`` the windows,
+    and a call runs both."""
+
+    mesh: StackMesh
+    shards: W.KeyShards
+    spec: W.WSpec
+    sync_every: int
+    n_windows: int
+    first_window: int
+    provenance: bool
+
+    def fold(self, log: EventBatch, sched, wm_sync):
+        """Fold the scheduled batches: ``(state, shuffle_bytes f32[S],
+        sync_bytes f32[S], prov i32[S_dst, S_src])``."""
+        S, dev, shards, mesh = self.shards.num_shards, self.mesh.device, self.shards, self.mesh
+        sched = torch.as_tensor(sched, dtype=torch.int32).to(dev)
+        wm_sync = torch.as_tensor(wm_sync, dtype=torch.bool).to(dev)
+        B = log.ts.shape[2]
+        rows = torch.arange(S, device=dev)
+        lowest = -(2**31)
+        src = rows.repeat_interleave(B).expand(S, S * B)  # per received lane
+        off_mine = (rows[:, None] != rows[None, :]).unsqueeze(2)  # [S_src, S_dst, 1]
+        ones = torch.ones((S, S * B), dtype=torch.float32, device=dev)
+        state = self.spec.zero(S, dev)
+        shuffle = torch.zeros(S, dtype=torch.float32, device=dev)
+        sync = torch.zeros(S, dtype=torch.float32, device=dev)
+        prov = torch.full((S, S), lowest, dtype=torch.int32, device=dev)
+        for r in range(sched.shape[1] // self.sync_every):
+            for t in range(r * self.sync_every, (r + 1) * self.sync_every):
+                col = sched[:, t]
+                ts, kind, auction, valid = (getattr(log, f)[rows, col]
+                                            for f in ("ts", "kind", "auction", "valid"))
+                is_bid = valid & (kind == KIND_BID)
+                # routing stack: [s, d, b] = source s's lane b, owned by d
+                m_sb = is_bid.unsqueeze(1) & (shards.shard_of(auction).unsqueeze(1) == rows[:, None])
+                r_ts = mesh.all_to_all(ts.unsqueeze(1).expand(S, S, B))
+                r_loc = mesh.all_to_all(shards.local_of(auction).unsqueeze(1).expand(S, S, B))
+                r_mask = mesh.all_to_all(m_sb)
+                shuffle = shuffle + (m_sb & off_mine).sum((1, 2)).to(torch.float32) * 8.0
+                state = W.insert(
+                    self.spec, state, src, r_ts.reshape(S, S * B), r_mask.reshape(S, S * B),
+                    batch_idx=col.repeat_interleave(B).expand(S, S * B), amounts=ones,
+                    keys=r_loc.reshape(S, S * B),
+                )
+                if self.provenance:
+                    prov = torch.maximum(prov, torch.where(r_mask, r_ts, lowest).amax(2))
+                wm = torch.where(valid, ts, lowest).amax(1)  # each source batch's watermark
+                state = W.increment_watermark(self.spec, state, rows, wm)
+            on = wm_sync[r]
+            state = dataclasses.replace(
+                state, progress=torch.where(on, mesh.pmax(state.progress), state.progress))
+            sync = sync + on.to(torch.float32) * float(S * 4)
+        return state, shuffle, sync, prov
+
+    def read(self, state: W.WState, key_table: torch.Tensor):
+        """Every shard's hot item of each window: ``(oks f32[S, n], vals
+        f32[S, n, 2])``, ``vals`` holding ``[count, auction_id]``."""
+        key_table = key_table.to(self.mesh.device)
+        oks, vals = [], []
+        for w in range(self.first_window, self.first_window + self.n_windows):
+            (cnt, key), ok = W.shard_topk_read(self.spec, state, w, key_table,
+                                               self.shards.num_keys, self.mesh, k=1)
+            oks.append(ok.to(torch.float32))
+            vals.append(torch.stack([cnt[:, 0], key[:, 0].to(torch.float32)], -1))
+        return torch.stack(oks, 1), torch.stack(vals, 1)
+
+    def __call__(self, log: EventBatch, key_table, sched, wm_sync):
+        state, shuffle, sync, prov = self.fold(log, sched, wm_sync)
+        out = (*self.read(state, key_table), shuffle, sync)
+        return out + (prov,) if self.provenance else out
+
+
+def build_keyed_pipeline(
+    mesh: StackMesh, shards: W.KeyShards, *, window_len: int = 1000,
+    num_slots: int = 16, hop: int | None = None, sync_every: int = 4,
+    n_windows: int = 8, first_window: int = 0, provenance: bool = False,
+) -> KeyedPipeline:
+    """Hash-sharded keyed dataplane (docs/protocol.md §6): per-auction bid
+    counts over the whole auction-id domain and a cross-shard hot-item read.
+
+    The result is called as ``run(log, key_table, sched, wm_sync) -> (oks
+    f32[S, n], vals f32[S, n, 2], shuffle_bytes f32[S], sync_bytes f32[S][,
+    prov i32[S, S]])`` where ``log`` is an EventBatch ``[S, num_batches,
+    B]``, ``key_table`` is ``shards.key_table()``, ``sched`` i32 ``[S,
+    n_steps]`` names the batch each partition folds at each step
+    (:func:`default_fold_schedule`), and ``wm_sync`` bool ``[n_steps //
+    sync_every]`` says whether round ``r``'s watermark exchange runs (False:
+    partitioned, windows stall until it heals).
+
+    Partition ``s`` owns the keys with ``shards.shard_of(k) == s``.  Each
+    step every partition routes its bids to their owners
+    (``mesh.all_to_all`` of the ``[S_src, S_dst, B]`` routing stack), and
+    each owner folds the lanes it received as their source partition, at
+    the source's scheduled batch index, into its ``[W, ceil(C/S)]`` range.
+    Ownership is exclusive, so a sync round ships only the ``[S]`` progress
+    map (``mesh.pmax``).  ``shuffle_bytes`` charges 8 bytes (ts, local) per
+    lane sent off its partition; ``sync_bytes`` ``S * 4`` per round with the
+    exchange on.  With ``provenance`` a fifth output gives each owner's
+    ingest frontier per source: the largest ts among the lanes the source
+    routed to it (``-2**31`` where it routed none).  Reads are
+    :func:`W.shard_topk_read` with k=1.
+    """
+    if mesh.size != shards.num_shards:
+        raise ValueError(f"{shards.num_shards} shards, mesh {mesh.size}")
+    assigner = as_assigner(window_len, hop if hop else window_len // 2)
+    spec = W.wgcounter_sharded(window_len, num_slots, shards.num_shards, shards,
+                               assigner=assigner)
+    return KeyedPipeline(mesh, shards, spec, sync_every, n_windows, first_window, provenance)
 
 
 def read_window_range(query: Query, horizon_ts: float) -> tuple[int, int]:

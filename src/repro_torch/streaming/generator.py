@@ -6,13 +6,15 @@ batch axis of ``events_per_batch`` events.  The load shape is the JAX
 package's: timestamps evenly spaced over the batch span plus jitter, then
 sorted, so a partition produces ``rate_per_partition`` events per second of
 event time; the Nexmark mix of 1 person : 3 auctions : 46 bids per 50
-events; lognormal(4, 1) prices; uniform auction ids; ``category = auction %
-5``; and the ``skew`` validity pattern.  It does not reproduce the JAX
-package's threefry bits: the parity tests feed the JAX log in as numpy.
+events; lognormal(4, 1) prices; uniform auction ids, or zipf-like ones
+under ``key_skew``; ``category = auction % 5``; and the ``skew`` validity
+pattern.  It does not reproduce the JAX package's threefry bits: the
+parity tests feed the JAX log in as numpy.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -34,6 +36,9 @@ class NexmarkConfig:
     # fraction of its events valid (0 = uniform, every event valid)
     skew: float = 0.0
     num_auctions: int = 1000  # auction ids are drawn from [0, num_auctions)
+    # zipf exponent of auction ids: id i is drawn with mass ~ (i+1)^-key_skew
+    # (0 = uniform)
+    key_skew: float = 0.0
 
     @property
     def batch_span_ms(self) -> float:
@@ -52,8 +57,7 @@ def _gen_chunk(cfg: NexmarkConfig, b0: int, nb: int, g: torch.Generator, device)
     lane = torch.arange(B, device=device) % 50
     kind = torch.where(lane == 0, KIND_PERSON, torch.where(lane < 4, KIND_AUCTION, KIND_BID))
     kind = kind.to(torch.int32).expand(S, nb, B).contiguous()
-    auction = torch.randint(0, cfg.num_auctions, (S, nb, B), generator=g,
-                            dtype=torch.int64, device=device)
+    auction = _auction_ids(cfg, (S, nb, B), g, device)
     category = (auction % NUM_CATEGORIES).to(torch.int32)
     price = torch.exp(torch.randn((S, nb, B), generator=g, **f32) + 4.0)
     bidder = torch.randint(0, 10_000, (S, nb, B), generator=g, dtype=torch.int64, device=device)
@@ -65,6 +69,22 @@ def _gen_chunk(cfg: NexmarkConfig, b0: int, nb: int, g: torch.Generator, device)
     valid = torch.floor((lane_f + 1.0) * frac[:, None]) > torch.floor(lane_f * frac[:, None])
     valid = (valid | (torch.arange(B, device=device) == B - 1))[:, None, :].expand(S, nb, B)
     return EventBatch(ts, kind, auction, price, category, bidder, valid.contiguous())
+
+
+def _auction_ids(cfg: NexmarkConfig, shape, g: torch.Generator, device) -> torch.Tensor:
+    """Auction ids in ``[0, num_auctions)``: uniform, or under ``key_skew``
+    the inverse CDF of the continuous power law ``x^-s`` on ``[1, N+1)``,
+    ``id = floor(x) - 1`` (the JAX package's formula, in f32)."""
+    if cfg.key_skew == 0.0:
+        return torch.randint(0, cfg.num_auctions, shape, generator=g,
+                             dtype=torch.int64, device=device)
+    N, s = float(cfg.num_auctions), cfg.key_skew
+    u = torch.rand(shape, generator=g, dtype=torch.float32, device=device)
+    if s == 1.0:
+        x = torch.exp(u * math.log(N + 1.0))
+    else:
+        x = (u * ((N + 1.0) ** (1.0 - s) - 1.0) + 1.0) ** (1.0 / (1.0 - s))
+    return torch.clamp(torch.floor(x) - 1.0, 0.0, N - 1.0).to(torch.int64)
 
 
 def generate_log(cfg: NexmarkConfig, device="cuda") -> EventBatch:

@@ -256,3 +256,15 @@ def make_q5(num_partitions: int, window_len: int = 1000, num_slots: int = 16,
 
     return Query("q5", num_partitions, window_len, assigner, (cnt_spec,), None,
                  fold, read, oracle, out_width=2)
+
+
+def q5_hot_oracle(log: EventBatch, wid: int, assigner: WindowAssigner,
+                  num_keys: int) -> torch.Tensor:
+    """Q5 ground truth over the full auction-id domain, the oracle of the
+    hash-sharded keyed dataplane (docs/protocol.md §6): a segment sum of the
+    window's bids per id, ``[count, auction_id]`` of the hottest, ties to the
+    lowest id.  Counts are integers, exact in f32 below 2^24."""
+    m = _bid_mask(log, assigner, wid)
+    cnts = torch.bincount(log.auction[m], minlength=num_keys).to(torch.float32)
+    hot = cnts.argmax()
+    return torch.stack([cnts[hot], hot.to(torch.float32)])

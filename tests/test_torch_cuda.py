@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import crdt_merge, ops, ref, topk_window, window_agg
+from repro_torch.kernels import crdt_merge, ops, ref, segment_reduce, topk_window, window_agg
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +109,54 @@ def test_topk_window_kernel_matches_plain(dev, L, ties):
         np.testing.assert_array_equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("N,n_seg,p_mask", [(0, 7, 0.8), (1, 512, 0.8), (5000, 1000, 0.8),
+                                             (20000, 3, 0.9), (4096, 70_000, 0.0),
+                                             (100_000, 1_000_003, 0.7)])
+@pytest.mark.parametrize("op", ["sum", "count", "max", "min"])
+def test_segment_reduce_kernel_matches_plain(dev, N, n_seg, p_mask, op):
+    """Empty and one-lane streams, a few huge segments, all lanes masked,
+    ragged tiles: counts, max and min bitwise against the plain version on
+    the card; every op bitwise against the CPU plain version (both fold each
+    segment in lane order from ``init``); sums to rtol 1e-5 against the
+    card's plain version, which adds by atomics in another order.  Values
+    are non-negative, as the dataplane's counts are, so that a relative
+    tolerance bounds a reordered sum."""
+    rng = np.random.default_rng(N + n_seg + len(op))
+    vals = torch.from_numpy(np.abs(rng.standard_normal(N) * 10).astype(np.float32))
+    segs = torch.from_numpy(rng.integers(0, n_seg, N).astype(np.int32))
+    mask = torch.from_numpy(rng.random(N) < p_mask)
+    init = torch.from_numpy(np.abs(rng.standard_normal(n_seg) * 10).astype(np.float32))
+    for it in (None, init):
+        got = segment_reduce.segment_reduce(vals.to(dev), segs.to(dev), mask.to(dev), n_seg,
+                                            op=op, init=None if it is None else it.to(dev))
+        want = ref.segment_reduce_ref(vals.to(dev), segs.to(dev), mask.to(dev), n_seg, op=op,
+                                      init=None if it is None else it.to(dev))
+        cpu = ref.segment_reduce_ref(vals, segs, mask, n_seg, op=op, init=it)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu(), cpu)
+        if op == "sum":
+            np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("R,F", [(1, 5), (16, 16), (16, 64), (3, 1000), (16, 1 << 20)])
+@pytest.mark.parametrize("op,dtype", [("max", torch.float32), ("min", torch.float32),
+                                      ("max", torch.int32), ("min", torch.int32),
+                                      ("or", torch.uint8), ("or", torch.bool)])
+def test_crdt_merge_kernel_matches_plain(dev, R, F, op, dtype):
+    rng = np.random.default_rng(R + F + len(op))
+    if dtype in (torch.uint8, torch.bool):
+        stack = torch.from_numpy(rng.integers(0, 256, (R, F)).astype(np.uint8)).to(dtype)
+    else:
+        stack = torch.from_numpy(rng.standard_normal((R, F)) * 1e3).to(dtype)
+    got = ops.crdt_merge(stack.to(dev), op)
+    assert got.dtype == dtype and got.shape == (F,)
+    np.testing.assert_array_equal(got.cpu(), ref.crdt_merge_ref(stack, op))
+    nd = ops.crdt_merge(stack.reshape(R, 1, F).to(dev), op)  # trailing dims flatten
+    np.testing.assert_array_equal(nd.cpu().reshape(F), got.cpu())
+
+
 def test_kernel_wrappers_count_launches(dev):
     before = {n: k.launches for n, k in ops.KERNELS.items()}
     S, L, W = 2, 100, 8
@@ -121,15 +169,17 @@ def test_kernel_wrappers_count_launches(dev):
     ops.topk_window(torch.full((S, W, 4), float("-inf"), device=dev),
                     torch.zeros((S, W, 4), dtype=torch.int64, device=dev),
                     z, torch.zeros((S, L), dtype=torch.int64, device=dev), slots, mask)
+    ops.segment_reduce(z[0], slots[0], mask[0], 7)
+    ops.crdt_merge(slots, "max")
     for n, k in ops.KERNELS.items():
         assert k.launches == before[n] + 1, n
 
 
 @pytest.mark.parametrize("qname", ["q0", "q1_ratio", "q4", "q5", "q7"])
 def test_pipeline_on_card_matches_cpu(dev, qname):
-    """The dataplane on the card gives the CPU run's outputs: bitwise, but
-    q4's float price sums, which the two fold in another grouping (rtol
-    1e-5)."""
+    """The dataplane on the card gives the CPU run's outputs bitwise, q4's
+    float price sums included: the fold kernel adds lane by lane into the
+    running sum, as the CPU plain version does."""
     from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.launch.stream import MAKERS, build_pipeline, read_window_range
     from repro_torch.streaming.generator import NexmarkConfig, generate_log
@@ -147,7 +197,35 @@ def test_pipeline_on_card_matches_cpu(dev, qname):
     assert oc.sum() > 0
     np.testing.assert_array_equal(og, oc)
     np.testing.assert_array_equal(sg, sc)
-    if qname == "q4":
-        np.testing.assert_allclose(vg, vc, rtol=1e-5)
-    else:
-        np.testing.assert_array_equal(vg, vc)
+    np.testing.assert_array_equal(vg, vc)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_keyed_pipeline_on_card_matches_cpu(dev, S):
+    """The keyed dataplane (segment_reduce folds, crdt_merge watermark
+    exchange) on the card gives the CPU run's outputs and state bitwise."""
+    from repro_torch.convert import wstate_to_numpy
+    from repro_torch.core.wcrdt import KeyShards
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.stream import build_keyed_pipeline, default_fold_schedule
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    C, nb = 10_000, 12
+    shards = KeyShards(C, S)
+    nx = NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=512,
+                       num_auctions=C, key_skew=1.1)
+    log = generate_log(nx, "cpu")
+    sched, wm = default_fold_schedule(S, nb), torch.ones(nb // 4, dtype=torch.bool)
+    outs = []
+    for d in ("cpu", dev):
+        pipe = build_keyed_pipeline(make_data_mesh(S, d), shards, window_len=100,
+                                    num_slots=16, n_windows=4, first_window=1, provenance=True)
+        lg = log.map(lambda x: x.to(d))
+        state, *rest = pipe.fold(lg, sched, wm)
+        outs.append((wstate_to_numpy(state), [t.cpu() for t in pipe(lg, shards.key_table(), sched, wm)]))
+    (sc, oc), (sg, og) = outs
+    assert oc[0].sum() > 0
+    for k in sc:
+        np.testing.assert_array_equal(sg[k], sc[k], err_msg=k)
+    for a, b in zip(og, oc):
+        np.testing.assert_array_equal(a, b)

@@ -3,19 +3,23 @@
 Inputs are made with numpy from a seed and go through ``repro.kernels.ref``,
 the Pallas kernel in interpret mode (as tests/test_kernels.py runs it) and
 the port's ``repro_torch.kernels.ref`` on the CPU.  Counts, max, min, the
-gated merge and top-k must match bitwise; float sums to rtol 1e-5 (the
-Pallas kernel sums a one-hot tile at a time, in another order).
+merges and top-k must match bitwise; float sums to rtol 1e-5 (the Pallas
+kernels sum a one-hot tile at a time, in another order).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ops import gated_delta_merge as j_gated_delta_merge
+from repro.kernels.segment_reduce import segment_reduce_pallas
 from repro.kernels.topk_window import topk_window_pallas
 from repro.kernels.window_agg import window_agg_pallas
-from repro_torch.kernels import build, crdt_merge, ops, ref, topk_window, window_agg
+from repro_torch.kernels import (
+    build, crdt_merge, ops, ref, segment_reduce, topk_window, window_agg,
+)
 
 
 def _lanes(rng, S, B, W, C):
@@ -128,6 +132,59 @@ def test_gated_delta_merge_edges(case):
         np.testing.assert_array_equal(got, leaf[owner, np.arange(W)])
 
 
+@pytest.mark.parametrize("N,n_seg,p_mask", [(300, 700, 0.8), (1000, 5, 0.9), (257, 1537, 0.0)])
+@pytest.mark.parametrize("op", ["sum", "count", "max", "min"])
+def test_segment_reduce_matches_jax(N, n_seg, p_mask, op):
+    """Ragged n_seg (not a tile multiple), segments no lane reaches, a few
+    long segments, an all-masked batch: the plain version against the JAX
+    reference and the Pallas kernel (interpret)."""
+    rng = np.random.default_rng(N + n_seg + len(op))
+    vals = (rng.standard_normal(N) * 10).astype(np.float32)
+    segs = rng.integers(0, n_seg, N).astype(np.int32)
+    mask = rng.random(N) < p_mask
+    got = ref.segment_reduce_ref(*map(torch.from_numpy, (vals, segs, mask)), n_seg, op=op).numpy()
+    j = [jnp.asarray(a) for a in (vals, segs, mask)]
+    _check(op, got, np.asarray(jref.segment_reduce_ref(*j, n_seg, op=op)))
+    _check(op, got, np.asarray(segment_reduce_pallas(*j, n_seg, op=op, interpret=True)))
+
+
+@pytest.mark.parametrize("op", ["sum", "count", "max", "min"])
+def test_window_agg_sparse_route_matches_jax(op):
+    """A keyed fold with C >= SPARSE_KEY_THRESHOLD goes through the segment
+    reduce, all replicas at once: against the JAX dispatcher's Pallas route
+    (segment = slot*C + key, init joined after) and its reference."""
+    rng = np.random.default_rng(len(op))
+    S, L, W, C = 2, 400, 3, 1500
+    vals, slots, mask, keys, init = _lanes(rng, S, L, W, C)
+    t = [torch.from_numpy(a) for a in (vals, slots, mask, keys, init)]
+    got = ops.window_agg(t[0], t[1], t[2], W, op=op, keys=t[3], C=C, init=t[4]).numpy()
+    for s in range(S):
+        a = [jnp.asarray(x[s]) for x in (vals, slots, mask)]
+        for use_pallas in (True, False):
+            want = jops.window_agg(*a, W, op=op, keys=jnp.asarray(keys[s]), C=C,
+                                   init=jnp.asarray(init[s]), use_pallas=use_pallas,
+                                   interpret=True)
+            _check(op, got[s], np.asarray(want))
+
+
+@pytest.mark.parametrize("R,F", [(1, 7), (4, 1024), (16, 1500)])
+@pytest.mark.parametrize("op,dtype", [("max", np.float32), ("min", np.float32),
+                                      ("max", np.int32), ("min", np.int32), ("or", np.uint8)])
+def test_crdt_merge_matches_jax(R, F, op, dtype):
+    """Bitwise against the JAX reference and the Pallas kernel (interpret),
+    through the port's dispatcher on the CPU."""
+    rng = np.random.default_rng(R + F + len(op))
+    if dtype == np.uint8:
+        stack = rng.integers(0, 256, (R, F)).astype(dtype)
+    else:
+        stack = (rng.standard_normal((R, F)) * 1e3).astype(dtype)
+    got = ops.crdt_merge(torch.from_numpy(stack), op).numpy()
+    np.testing.assert_array_equal(got, ref.crdt_merge_ref(torch.from_numpy(stack), op).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jref.crdt_merge_ref(jnp.asarray(stack), op)))
+    pal = jops.crdt_merge(jnp.asarray(stack), op=op, use_pallas=True, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pal))
+
+
 def _topk_inputs(rng, S, W, k, B, ties):
     sv = np.full((S, W, k), -np.inf, np.float32)
     si = np.zeros((S, W, k), np.uint32)
@@ -228,14 +285,23 @@ def test_ops_dispatch_cpu_takes_the_plain_versions():
                                   ref.gated_delta_merge_ref(wid, leaf))
 
 
-def test_ops_guards():
+def test_ops_guards(monkeypatch):
     z = torch.zeros((1, 4))
     i = torch.zeros((1, 4), dtype=torch.int32)
     m = torch.ones((1, 4), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="segment_reduce: keyed slice"):
-        ops.window_agg(z, i, m, 4, keys=i, C=ops.SPARSE_KEY_THRESHOLD)
+    seen = []
+    monkeypatch.setattr(ops, "segment_reduce",
+                        lambda *a, **kw: seen.append((a, kw)) or ref.segment_reduce_ref(*a, **kw))
+    out = ops.window_agg(z, i, m, 4, keys=i, C=ops.SPARSE_KEY_THRESHOLD)
+    assert len(seen) == 1 and seen[0][0][3] == 4 * ops.SPARSE_KEY_THRESHOLD
+    assert out.shape == (1, 4, ops.SPARSE_KEY_THRESHOLD)
+    ops.window_agg(z, i, m, 4, keys=i, C=ops.SPARSE_KEY_THRESHOLD - 1)
+    assert len(seen) == 1  # below the threshold: the dense fold
     with pytest.raises(ValueError, match="overflows"):
         ops.window_agg(z, i, m, 2**22, keys=i, C=1023)
+    with pytest.raises(ValueError, match="overflows"):
+        ops.window_agg(torch.zeros((2, 4)), i.expand(2, 4), m.expand(2, 4), 2**20,
+                       keys=i.expand(2, 4), C=1024)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -254,6 +320,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel"):
         crdt_merge.gated_delta_merge(torch.zeros((1, 4), dtype=torch.int32),
                                      torch.zeros((1, 4, 2)), op="or")
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce.segment_reduce(z[0], i[0], m[0], 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        crdt_merge.crdt_merge(i, "max")
+    with pytest.raises(ValueError, match="no kernel"):
+        crdt_merge.crdt_merge(z, "or")
     assert window_agg.KERNEL.launches == before
 
 
@@ -262,7 +334,7 @@ def test_build_names_libraries_by_source_hash():
     the source and flags; nothing is built when a module is imported."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     paths = {n: build.lib_path(n) for n in ops.KERNELS}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 5
     for n, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(n + "-")
         assert build.lib_path(n) == p
