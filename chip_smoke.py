@@ -13,7 +13,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    during two full-size sync rounds of each query, of the keyed dataplane
    and of dense q5 at 10,000 auctions) and at ragged edges; time both, the
    one PyTorch call that computes the same function where there is one, and
-   the host's cost of one launch through the wrapper.
+   the host's cost of one launch through the wrapper.  Each kernel is timed
+   in three separate batches of 20 launches, all three printed.  The fold
+   (``window_agg``) is checked bitwise against the CPU plain version and a
+   second launch on every recorded call and on two stress shapes (one cell
+   taking every lane; zipf(1.1) keys over 64), and each of its timed rows
+   carries its serial-chain floor: the time one thread takes, measured
+   here, for a chain of dependent f32 adds as long as its fullest cell.
 4. Run the dataplane (``build_pipeline``) for every query at a full Nexmark
    deployment: 16 partitions at 625,000 events/s each (nexmark-flink's
    default 10 M events/s in all), 16,384 events per batch, 10 s windows
@@ -38,7 +44,9 @@ It imports nothing of JAX.  Without a card it fails before any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -90,6 +98,31 @@ RTOL = {"q1_ratio": 2e-6, "q4": 1e-4}
 # by atomics in a run-dependent order; two f32 orders of n <= 3,300 positive
 # terms differ by at most n * 2^-24 = 2e-4 relatively
 SUM_RTOL = 2e-4
+# one thread's chain of n dependent f32 adds, timed on the SM's clock and
+# the global timer: the floor of a lane-order sum over n lanes (its values
+# come from registers, so only the adds are serial)
+CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chain(const float* x, float* out, long long* t, int n) {
+  float acc = x[0];
+  const float a = x[1], b = x[2], c = x[3], d = x[4];
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+  int i = 0;
+  for (; i + 4 <= n; i += 4) { acc = acc + a; acc = acc + b; acc = acc + c; acc = acc + d; }
+  for (; i < n; ++i) acc = acc + a;
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[0] = acc;
+  t[0] = c1 - c0;
+  t[1] = (long long)(g1 - g0);
+}
+extern "C" int chain_launch(const float* x, float* out, long long* t, int n, cudaStream_t s) {
+  chain<<<1, 1, 0, s>>>(x, out, t, n);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def log(msg: str) -> None:
@@ -113,6 +146,14 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, batches: int = 3, iters: int = 20) -> dict:
+    """A kernel's device time: ``ms``, the mean of ``batches`` separate
+    :func:`cuda_ms` batches of ``iters`` launches, and ``ms_batches``, each
+    batch's mean, so that a reading that differs between batches shows."""
+    times = [cuda_ms(fn, iters) for _ in range(batches)]
+    return {"ms": sum(times) / len(times), "ms_batches": times}
 
 
 def host_us(fn, iters: int = 100) -> float:
@@ -148,6 +189,65 @@ def wrapper_host_us(kernel, call) -> dict:
     torch.cuda.synchronize()
     del out
     return row
+
+
+def start_chain_build() -> tuple:
+    """Start ``nvcc`` on :data:`CHAIN_SRC` into ``build/``; returns what
+    :func:`load_chain` waits on."""
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = build.BUILD_DIR / "chain_floor.cu", build.BUILD_DIR / "chain_floor.so"
+    src.write_text(CHAIN_SRC)
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+_CHAIN = {}
+
+
+def load_chain(started: tuple) -> None:
+    proc, lib = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"chain_floor.cu: nvcc exit {proc.returncode}\n{out}")
+    fn = ctypes.CDLL(str(lib)).chain_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _CHAIN["fn"] = fn
+
+
+def run_chain(n: int) -> tuple[int, int]:
+    """SM cycles and global-timer ns of one thread's chain of ``n``
+    dependent f32 adds."""
+    x = torch.tensor([0.5, 1.25, -0.75, 0.375, 2.5], device="cuda")
+    out = torch.empty(1, device="cuda")
+    t = torch.zeros(2, dtype=torch.int64, device="cuda")
+    if _CHAIN["fn"](x.data_ptr(), out.data_ptr(), t.data_ptr(), n,
+                    torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("chain_floor: launch failed")
+    cycles, ns = t.tolist()
+    if not (cycles > 0 and torch.isfinite(out).all()):
+        raise RuntimeError(f"chain_floor: {cycles} cycles, out {out.item()}")
+    return cycles, ns
+
+
+@functools.lru_cache(maxsize=None)
+def chain_clock() -> tuple[float, float]:
+    """SM cycles per dependent f32 add and the SM clock (Hz), measured on
+    a chain of 2^22 adds (about 8 ms)."""
+    n = 1 << 22
+    run_chain(n)  # warm-up
+    cycles, ns = run_chain(n)
+    return cycles / n, cycles / ns * 1e9
+
+
+def chain_floor_ms(n: int) -> float:
+    """The measured time of one thread's chain of ``n`` dependent f32 adds
+    (the median of three, in SM cycles over the SM clock of
+    :func:`chain_clock`)."""
+    cycles = sorted(run_chain(n)[0] for _ in range(3))[1]
+    return cycles / chain_clock()[1] * 1e3
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -262,53 +362,99 @@ def _to_cpu(x):
     return x.cpu() if torch.is_tensor(x) else x
 
 
-def check_window_agg(dev, calls: dict) -> dict:
+def fullest_cell(slots, mask, keys, C: int) -> int:
+    """The live lanes of the fullest (replica, cell): the longest chain of
+    a lane-order sum on these lanes."""
+    cell = slots.long() * C + (0 if keys is None else keys.long())
+    cell = torch.where(mask, cell, -1)
+    return max(int(torch.unique(r[r >= 0], return_counts=True)[1].max())
+               if bool((r >= 0).any()) else 0 for r in cell)
+
+
+def window_agg_row(dev, name: str, args, kw: dict, timed: bool,
+                   sum_rtol: float = SUM_RTOL) -> dict:
+    """Hold the fold kernel against its plain versions on one call (bitwise
+    against the CPU one, a second launch bitwise against the first); if
+    ``timed``, time the kernel, its plain version on the card and one
+    ``index_put_`` computing the same sum.  Sums hold against the card's
+    plain version, which adds by atomics in another order, to ``sum_rtol``."""
     from repro_torch.kernels import ops, ref, window_agg
+
+    vals, slots, mask, W = args
+    keys, C, init = kw.get("keys"), kw.get("C", 1), kw.get("init")
+    op = kw["op"]
+    got = window_agg.window_agg(*args, **kw)
+    want = ref.window_agg_ref(*args, **kw)
+    cpu = ref.window_agg_ref(*(_to_cpu(a) for a in args), **{k: _to_cpu(v) for k, v in kw.items()})
+    if op == "sum":
+        err = assert_close(name, got, want, sum_rtol)
+    else:
+        err = assert_equal(name, got, want)
+    # lane-order folds on both sides: bitwise against the CPU version
+    assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
+    # no atomics: a second launch gives the same bits
+    assert_equal(name + " (second run)", window_agg.window_agg(*args, **kw), got)
+    row = {"shape": name, "max_abs_err": err}
+    if not timed:
+        return row
+    row.update(kernel_ms(lambda: window_agg.window_agg(*args, **kw)))
+    row["plain_ms"] = cuda_ms(lambda: ref.window_agg_ref(*args, **kw))
+    cell = slots.long() * C + (0 if keys is None else keys.long())
+    srow = torch.arange(vals.shape[0], device=dev)[:, None].expand_as(cell)
+    vm = torch.where(mask, vals, 0.0)
+    acc = init.reshape(vals.shape[0], -1).clone()
+    row["library_ms"] = cuda_ms(lambda: acc.index_put_((srow, cell), vm, accumulate=True))
+    row.update(wrapper_host_us(window_agg.KERNEL, lambda: ops.window_agg(*args, **kw)))
+    # bytes the fold needs: every mask byte, the value, slot and key of each
+    # live lane, init read and the output written; one operation per live
+    # lane and per cell
+    live = int(mask.sum())
+    lane_bytes = vals.element_size() + slots.element_size() + (
+        0 if keys is None else keys.element_size())
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(mask, init) + live * lane_bytes + nbytes(got), live + got.numel())
+    row["chain_lanes"] = fullest_cell(slots, mask, keys, C)
+    row["chain_floor_ms"] = chain_floor_ms(row["chain_lanes"])
+    return row
+
+
+def check_window_agg(dev, calls: dict) -> dict:
+    from repro_torch.kernels import ref, window_agg
 
     rows = []
     for qn in ("q0", "q1_ratio", "q4", "q5"):
         for i, (args, kw) in enumerate(calls[qn]["window_agg"]):
             vals, slots, mask, W = args
-            keys, C, init = kw.get("keys"), kw.get("C", 1), kw.get("init")
-            L = vals.shape[1]
+            C = kw.get("C", 1)
             # the path folds sums; q4's price lanes also check the other ops
             ops_ = ("sum", "count", "max", "min") if (qn, i) == ("q4", 0) else (kw["op"],)
             for op in ops_:
-                kw_op = dict(kw, op=op)
-                got = window_agg.window_agg(*args, **kw_op)
-                want = ref.window_agg_ref(*args, **kw_op)
-                cpu = ref.window_agg_ref(*(_to_cpu(a) for a in args),
-                                         **{k: _to_cpu(v) for k, v in kw_op.items()})
-                name = f"window_agg {qn} call {i} op={op} S={S} L={L} W={W} C={C}"
-                if op == "sum":
-                    err = assert_close(name, got, want, SUM_RTOL)
-                else:
-                    err = assert_equal(name, got, want)
-                # lane-order folds on both sides: bitwise against the CPU version
-                assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
-                if qn == "q4":  # no atomics: a second run gives the same bits
-                    assert_equal(name + " (second run)", window_agg.window_agg(*args, **kw_op), got)
-                row = {"shape": name, "max_abs_err": err}
-                if op == kw["op"]:
-                    row["ms"] = cuda_ms(lambda: window_agg.window_agg(*args, **kw_op))
-                    row["plain_ms"] = cuda_ms(lambda: ref.window_agg_ref(*args, **kw_op))
-                    cell = slots.long() * C + (0 if keys is None else keys.long())
-                    srow = torch.arange(S, device=dev)[:, None].expand_as(cell)
-                    vm = torch.where(mask, vals, 0.0)
-                    acc = init.reshape(S, -1).clone()
-                    row["library_ms"] = cuda_ms(
-                        lambda: acc.index_put_((srow, cell), vm, accumulate=True))
-                    row.update(wrapper_host_us(window_agg.KERNEL,
-                                               lambda: ops.window_agg(*args, **kw_op)))
-                    # bytes the fold needs: every mask byte, the value, slot
-                    # and key of each live lane, init read and the output
-                    # written; one operation per live lane and per cell
-                    live = int(mask.sum())
-                    lane_bytes = vals.element_size() + slots.element_size() + (
-                        0 if keys is None else keys.element_size())
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        nbytes(mask, init) + live * lane_bytes + nbytes(got),
-                        live + got.numel())
+                name = f"window_agg {qn} call {i} op={op} S={S} L={vals.shape[1]} W={W} C={C}"
+                rows.append(window_agg_row(dev, name, args, dict(kw, op=op), op == kw["op"]))
+                log(json.dumps(rows[-1]))
+    # stress shapes: one cell takes every lane of a replica (C=1); zipf(1.1)
+    # keys over C=64 at q5's lane count, in two adjacent slots as q5's hop
+    g = torch.Generator(device=dev).manual_seed(6)
+    for tag, L, C in (("one cell", B, 1), ("zipf(1.1) keys", 2 * B, 64)):
+        vals = torch.rand((S, L), generator=g, device=dev) * 10 + 0.1
+        if C == 1:
+            slots = torch.full((S, L), 17, dtype=torch.int32, device=dev)
+            mask, keys = torch.ones((S, L), dtype=torch.bool, device=dev), None
+        else:
+            slots = (torch.rand((S, L), generator=g, device=dev) < 0.5).to(torch.int32) + 5
+            mask = torch.rand((S, L), generator=g, device=dev) < 0.9
+            w = 1.0 / torch.arange(1, C + 1, device=dev, dtype=torch.float64) ** KEY_SKEW
+            keys = torch.multinomial(w.expand(S, C), L, replacement=True,
+                                     generator=g).to(torch.int32)
+        init = torch.rand((S, NUM_SLOTS, C), generator=g, device=dev) * 1e3
+        args = (vals, slots, mask, NUM_SLOTS)
+        for op in ("sum", "count", "max", "min"):
+            name = f"window_agg stress {tag} op={op} S={S} L={L} W={NUM_SLOTS} C={C}"
+            # two f32 orders of the n <= L positive terms of a cell differ
+            # by at most n * 2^-24 relatively
+            row = window_agg_row(dev, name, args, dict(op=op, keys=keys, C=C, init=init),
+                                 op == "sum", sum_rtol=L * 2.0**-24)
+            if op == "sum":
                 rows.append(row)
                 log(json.dumps(row))
     # ragged edges: lanes not a tile multiple, uniform slots, all-masked rows
@@ -322,8 +468,9 @@ def check_window_agg(dev, calls: dict) -> dict:
             got = window_agg.window_agg(vals, slots, mask, NUM_SLOTS, op=op, keys=keys, C=5)
             want = ref.window_agg_ref(vals, slots, mask, NUM_SLOTS, op=op, keys=keys, C=5)
             assert_equal(f"window_agg ragged L={L} p={p} op={op}", got, want)
-    log("window_agg: ragged edges bitwise equal")
-    return dict(max((r for r in rows if "ms" in r), key=lambda r: r["bound_ms"]),
+    log("window_agg: ragged edges bitwise equal; stress shapes bitwise equal for every op")
+    path = [r for r in rows if "ms" in r and "stress" not in r["shape"]]
+    return dict(max(path, key=lambda r: r["bound_ms"]),
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
@@ -351,7 +498,7 @@ def check_gated_delta_merge(dev, calls: dict) -> dict:
             err = assert_equal(name, got, ref.gated_delta_merge_ref(wid, leaf, op))
             n_rows = gated_rows(wid)
             row = {"shape": name + f" ({n_rows} of {R * W_} rows gated in)", "max_abs_err": err,
-                   "ms": cuda_ms(lambda: ops.gated_delta_merge(wid, leaf, op)),
+                   **kernel_ms(lambda: ops.gated_delta_merge(wid, leaf, op)),
                    "plain_ms": cuda_ms(lambda: ref.gated_delta_merge_ref(wid, leaf, op)),
                    "library_ms": None}
             row.update(wrapper_host_us(crdt_merge.KERNEL,
@@ -392,7 +539,7 @@ def check_topk_window(dev, calls: dict) -> dict:
     assert_equal(name + " vals", got[0], want[0])
     assert_equal(name + " ids", got[1], want[1])
     row = {"shape": name, "max_abs_err": 0.0,
-           "ms": cuda_ms(lambda: topk_window.topk_window(*args)),
+           **kernel_ms(lambda: topk_window.topk_window(*args)),
            "plain_ms": cuda_ms(lambda: ref.topk_window_ref(*args), iters=5),
            "library_ms": None}
     row.update(wrapper_host_us(topk_window.KERNEL, lambda: ops.topk_window(*args)))
@@ -447,7 +594,7 @@ def check_segment_reduce(dev, calls: dict) -> dict:
             segm = torch.where(mask, segs, n_seg).long()
             acc = torch.zeros(n_seg + 1, device=dev)
             row = {"shape": name, "max_abs_err": err,
-                   "ms": cuda_ms(lambda: seg.reduce_sorted(*srt, n_seg, op=op, init=init)),
+                   **kernel_ms(lambda: seg.reduce_sorted(*srt, n_seg, op=op, init=init)),
                    "sort_ms": cuda_ms(lambda: seg.sort_lanes(vals, segs, mask, n_seg)),
                    "wrapper_ms": cuda_ms(lambda: seg.segment_reduce(*args, **kw)),
                    "plain_ms": cuda_ms(lambda: ref.segment_reduce_ref(*args, **kw)),
@@ -510,7 +657,7 @@ def check_crdt_merge(dev, calls: dict) -> dict:
         got = crdt_merge.crdt_merge(stack, op)
         err = assert_equal(name, got, ref.crdt_merge_ref(stack, op))
         row = {"shape": name, "max_abs_err": err,
-               "ms": cuda_ms(lambda: crdt_merge.crdt_merge(stack, op)),
+               **kernel_ms(lambda: crdt_merge.crdt_merge(stack, op)),
                "plain_ms": cuda_ms(lambda: ref.crdt_merge_ref(stack, op)),
                "library_ms": cuda_ms(library)}
         row.update(wrapper_host_us(crdt_merge.MERGE_KERNEL, lambda: ops.crdt_merge(stack, op)))
@@ -913,13 +1060,24 @@ def main() -> int:
 
     log("== phase 2: build")
     t0 = time.perf_counter()
-    report = build.build(list(ops.KERNELS))
+    chain = start_chain_build()
+    try:
+        report = build.build(list(ops.KERNELS))
+    except BaseException:
+        chain[0].kill()  # leave no compiler running
+        chain[0].wait()
+        raise
     for kname, r in report.items():
         usage = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"built {kname}.cu in {r['seconds']:.2f} s: " + " | ".join(usage))
-    log(f"build wall time {time.perf_counter() - t0:.2f} s ({len(report)} sources)")
+    load_chain(chain)
+    log(f"build wall time {time.perf_counter() - t0:.2f} s ({len(report)} sources and the "
+        "chain probe)")
 
     log(f"== phase 3: kernels against their plain versions {card}")
+    per_add, hz = chain_clock()
+    log(f"f32 add chain: {per_add:.4f} SM cycles per dependent add at {hz / 1e9:.4f} GHz "
+        f"(one thread, 2^22 adds) {card}")
     calls = main_path_calls(dev)
     kernel_rows = {
         "window_agg": check_window_agg(dev, calls),
@@ -958,7 +1116,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "host_us": row["host_us"],
             "launch_us": row["launch_us"], "shape": row["shape"],
-            **{k_: row[k_] for k_ in ("sort_ms", "wrapper_ms") if k_ in row},
+            **{k_: row[k_] for k_ in ("ms_batches", "chain_floor_ms", "sort_ms", "wrapper_ms")
+               if k_ in row},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@
 Replaces the Pallas kernel ``repro/kernels/segment_reduce.py:segment_reduce_pallas``.
 As the JAX wrapper does, the sort by segment and the per-tile ranges are
 computed outside the kernel (:func:`sort_lanes`); the kernel reduces the
-sorted stream (:func:`reduce_sorted`).
+sorted stream (:func:`reduce_sorted`), as three kernels on the current
+stream that overlap by programmatic dependent launch and complete
+together, so to the caller it is one operation on that stream.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ OPS = {"sum": 0, "count": 1, "max": 2, "min": 3}
 SEG_TILE = 512  # segments per block (csrc/segment_reduce.cu kTile)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("segment_reduce", "segment_reduce_launch", [_P] * 5 + [_I] * 2)
+KERNEL = CudaKernel("segment_reduce", "segment_reduce_launch", [_P] * 5 + [_I] * 3)
 
 
 def sort_lanes(vals: torch.Tensor, segs: torch.Tensor, mask: torch.Tensor, n_seg: int):
@@ -51,7 +53,7 @@ def reduce_sorted(sseg, sval, edges, n_seg: int, op: str = "sum", init=None) -> 
     if init is not None:
         check_cuda("init", init, torch.float32, (n_seg,), dev)
     out = torch.empty(n_seg, dtype=torch.float32, device=dev)
-    KERNEL(dev, ptr(sseg), ptr(sval), ptr(edges), ptr(init), ptr(out), n_seg, OPS[op])
+    KERNEL(dev, ptr(sseg), ptr(sval), ptr(edges), ptr(init), ptr(out), N, n_seg, OPS[op])
     return out
 
 

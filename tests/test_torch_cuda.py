@@ -229,3 +229,156 @@ def test_keyed_pipeline_on_card_matches_cpu(dev, S):
         np.testing.assert_array_equal(sg[k], sc[k], err_msg=k)
     for a, b in zip(og, oc):
         np.testing.assert_array_equal(a, b)
+
+
+def _zipf_keys(rng, shape, C, a=1.1):
+    """Keys in [0, C) drawn with zipf(a) popularity: key 0 the hottest."""
+    w = 1.0 / np.arange(1, C + 1) ** a
+    return rng.choice(C, size=shape, p=w / w.sum()).astype(np.int32)
+
+
+def _same_bits_twice(launch, want):
+    """The kernel's output equals ``want`` bitwise, and so does a second launch."""
+    got = launch()
+    again = launch()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu(), want)
+    np.testing.assert_array_equal(again.cpu(), got.cpu())
+
+
+# (L, W, C, lanes): the fold kernel's edges.  A tile holds 4,096 lanes and a
+# block a range of up to 512 cells.
+WINDOW_AGG_EDGES = {
+    "one_cell": (16_384, 64, 1, "one"),  # every lane in one cell
+    "run_across_tiles": (3 * 4096 + 7, 64, 1, "two_slots"),  # two cells' runs cross tiles
+    "ragged_range_c5": (16_384, 64, 5, "two_slots"),  # 320 cells, not a range multiple
+    "ragged_range_c37": (9_000, 64, 37, "uniform"),  # 2,368 cells: four ranges and a part
+    "ragged_lanes": (4097, 16, 3, "uniform"),  # one lane past a tile
+    "zipf_keys": (32_768, 64, 64, "zipf"),  # q5's shape, zipf(1.1) keys
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_AGG_EDGES))
+@pytest.mark.parametrize("op", ["sum", "count", "max", "min"])
+def test_window_agg_kernel_edges(dev, case, op):
+    """Every op bitwise against the CPU plain version (lane-order folds on
+    both sides, non-integer values), and a second launch gives the same bits."""
+    L, W, C, lanes = WINDOW_AGG_EDGES[case]
+    S = 4
+    rng = np.random.default_rng(L + W + C + len(op))
+    vals = (rng.standard_normal((S, L)) * 10).astype(np.float32)
+    mask = rng.random((S, L)) < 0.9
+    if lanes == "one":
+        slots = np.full((S, L), 17, np.int32)
+        mask[:] = True
+    elif lanes == "two_slots":
+        slots = (rng.random((S, L)) < 0.4).astype(np.int32) + 30
+    else:
+        slots = rng.integers(0, W, (S, L)).astype(np.int32)
+        if lanes == "zipf":
+            slots = (rng.random((S, L)) < 0.5).astype(np.int32) + 5
+    if lanes == "zipf":
+        keys = _zipf_keys(rng, (S, L), C)
+    else:
+        keys = rng.integers(0, C, (S, L)).astype(np.int32)
+    init = (rng.standard_normal((S, W, C)) * 10).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (vals, slots, mask, keys, init)]
+    d = [x.to(dev) for x in t]
+    kd, kc = (None, None) if C == 1 else (d[3], t[3])
+    for use_init in (False, True):
+        want = ref.window_agg_ref(t[0], t[1], t[2], W, op=op, keys=kc, C=C,
+                                  init=t[4] if use_init else None)
+        it = d[4] if use_init else None
+        _same_bits_twice(lambda: window_agg.window_agg(d[0], d[1], d[2], W, op=op, keys=kd, C=C,
+                                                       init=it), want)
+
+
+def _segment_edge_case(case, rng):
+    """(vals, segs, mask, n_seg) of the segment reduce's edges."""
+    if case == "one_segment_unaligned":
+        # every lane but the first three in one segment: its run starts at
+        # stream position 3 and N is not a multiple of 4
+        N, n_seg = 100_003, 3000
+        segs = np.full(N, 1777, np.int32)
+        segs[:3] = 12
+        mask = np.ones(N, bool)
+    elif case == "hot_last_tile":
+        N, n_seg = 60_001, 5000  # ten tiles; the hot segment in the last
+        segs = rng.integers(0, n_seg, N).astype(np.int32)
+        segs[rng.random(N) < 0.5] = n_seg - 1
+        mask = rng.random(N) < 0.95
+    elif case == "long_runs_one_tile":
+        N, n_seg = 50_000, 20_000  # eleven long runs in tile 0, the rest spread
+        segs = rng.integers(0, n_seg, N).astype(np.int32)
+        hot = rng.random(N) < 0.3
+        segs[hot] = rng.integers(0, 11, int(hot.sum())) * 37
+        mask = rng.random(N) < 0.9
+    elif case == "many_hot_runs":
+        # 30 runs of 3,000-12,000 lanes, some covering an aligned 4,096-lane
+        # window of the stream and some not, more than the hot blocks
+        n_seg = 3000
+        lens = rng.integers(3000, 12_000, 30)
+        segs = np.concatenate([np.full(n, 7 + 97 * i, np.int32) for i, n in enumerate(lens)])
+        segs = np.concatenate([segs, rng.integers(0, n_seg, 20_000).astype(np.int32)])
+        N = segs.shape[0]
+        mask = rng.random(N) < 0.99
+    else:  # runs of every length around the front warps' threshold
+        N, n_seg = 40_000, 1500
+        segs = np.repeat(np.arange(n_seg, dtype=np.int32), rng.integers(0, 60, n_seg))[:N]
+        N = segs.shape[0]
+        mask = rng.random(N) < 0.97
+    vals = (rng.standard_normal(N) * 10).astype(np.float32)
+    return vals, segs, mask, n_seg
+
+
+@pytest.mark.parametrize("case", ["one_segment_unaligned", "hot_last_tile",
+                                  "long_runs_one_tile", "many_hot_runs", "runs_near_threshold"])
+@pytest.mark.parametrize("op", ["sum", "count", "max", "min"])
+def test_segment_reduce_kernel_edges(dev, case, op):
+    """Long runs (folded by the front warps) and short ones: every op bitwise
+    against the CPU plain version, with and without init, and the same bits
+    from a second launch and from a stream whose buffers are not 16-byte
+    aligned (the kernel's scalar loads)."""
+    rng = np.random.default_rng(len(case) + len(op))
+    vals, segs, mask, n_seg = _segment_edge_case(case, rng)
+    init = (rng.standard_normal(n_seg) * 10).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (vals, segs, mask)]
+    d = [x.to(dev) for x in t]
+    sseg, sval, edges = segment_reduce.sort_lanes(*d, n_seg)
+    N = sseg.shape[0]
+    off_seg = torch.empty(N + 1, dtype=torch.int32, device=dev)[1:]
+    off_val = torch.empty(N + 1, dtype=torch.float32, device=dev)[1:]
+    off_seg.copy_(sseg)
+    off_val.copy_(sval)
+    for it in (None, torch.from_numpy(init)):
+        want = ref.segment_reduce_ref(*t, n_seg, op=op, init=it)
+        itd = None if it is None else it.to(dev)
+        _same_bits_twice(lambda: segment_reduce.segment_reduce(*d, n_seg, op=op, init=itd), want)
+        _same_bits_twice(lambda: segment_reduce.reduce_sorted(off_seg, off_val, edges, n_seg,
+                                                              op=op, init=itd), want)
+
+
+def test_segment_reduce_completes_before_the_next_op(dev):
+    """What follows a launch on the stream sees every segment, the hot run's
+    too, although that run's chain of some 3.7 million adds outlasts the
+    state copy many times over: the launch's kernels complete together.
+    Each launch writes a fresh buffer, read by a copy enqueued right after
+    it with no synchronisation between."""
+    rng = np.random.default_rng(23)
+    N, n_seg = 1 << 22, 1 << 20
+    segs = np.full(N, 777_777, np.int32)
+    segs[: N // 8] = rng.integers(0, n_seg, N // 8)
+    vals = rng.standard_normal(N).astype(np.float32)
+    mask = np.ones(N, bool)
+    init = rng.standard_normal(n_seg).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (vals, segs, mask)]
+    want = ref.segment_reduce_ref(*t, n_seg, op="sum", init=torch.from_numpy(init))
+    srt = segment_reduce.sort_lanes(*(x.to(dev) for x in t), n_seg)
+    itd = torch.from_numpy(init).to(dev)
+    torch.cuda.synchronize()
+    outs, seen = [], []
+    for _ in range(3):
+        outs.append(segment_reduce.reduce_sorted(*srt, n_seg, op="sum", init=itd))
+        seen.append(outs[-1].clone())
+    for s in seen:
+        np.testing.assert_array_equal(s.cpu(), want)

@@ -339,3 +339,30 @@ def test_build_names_libraries_by_source_hash():
         assert p.parent == build.BUILD_DIR and p.name.startswith(n + "-")
         assert build.lib_path(n) == p
     assert not build._LIBS
+
+
+def test_window_agg_hot_cell_sum_is_the_jax_live_fold():
+    """The order the fold kernels keep: at a hot-cell shape (C = 1, 16,384
+    non-integer lanes, nearly all in one cell, folded into a running state)
+    the plain version's sum equals the JAX live fold's scatter-add
+    (``GCounter.fold_windows``) bit for bit, so it is a sum from ``init`` in
+    lane order, not a sum of the batch added to ``init``."""
+    from repro.core.crdt import GCounter as JGCounter
+
+    rng = np.random.default_rng(14)
+    L, W, P, actor = 16_384, 64, 3, 1
+    vals = (rng.random(L) * 10 + 0.1).astype(np.float32)
+    slots = np.where(rng.random(L) < 0.97, 9, 10).astype(np.int32)
+    mask = rng.random(L) < 0.9
+    state = (rng.random((W, P)) * 1e4).astype(np.float32)
+    want = JGCounter(jnp.asarray(state)).fold_windows(
+        jnp.asarray(slots), jnp.asarray(mask), actor, jnp.asarray(vals)).slots[:, actor]
+    got = ref.window_agg_ref(torch.from_numpy(vals)[None], torch.from_numpy(slots)[None],
+                             torch.from_numpy(mask)[None], W, op="sum",
+                             init=torch.from_numpy(state[:, actor].reshape(1, W, 1)))
+    np.testing.assert_array_equal(got.reshape(W).numpy(), np.asarray(want))
+    # the batch's sum added to the state once rounds otherwise
+    batch = ref.window_agg_ref(torch.from_numpy(vals)[None], torch.from_numpy(slots)[None],
+                               torch.from_numpy(mask)[None], W, op="sum")
+    assert not np.array_equal((batch.reshape(W) + torch.from_numpy(state[:, actor])).numpy(),
+                              np.asarray(want))
