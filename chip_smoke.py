@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. The device: name, count, and ``nvidia-smi``'s name and power limit.
 2. Build the five CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all at once.
-3. Hold each kernel against its plain PyTorch version on the card, on the
+3. Build a small log with the port's threefry generator on the card and
+   on the CPU and hold the two equal (``check_generator``).  Then hold
+   each kernel against its plain PyTorch version on the card, on the
    very arguments the dataplane passes it (recorded at ``kernels/ops.py``
    during two full-size sync rounds of each query, of the keyed dataplane
    and of dense q5 at 10,000 auctions) and at ragged edges; time both, the
@@ -86,13 +88,14 @@ DENSE_Q5_KEYS = 10_000  # the keyed sweep's dense comparand
 # the segment reduce against its plain version on the card, which sums by
 # atomics in another order (the path's sums are of 1.0s, exact either way)
 SEG_SUM_RTOL = 1e-5
-# f32 tolerances of the dataplane against the oracle (float64 or exact ints):
+# f32 tolerances of the dataplane against the oracle (exact ints, or f32):
 # q1_ratio: a 10 s window holds ~9.2e7 bids, beyond the 2^24 that f32
 #   counts exactly, so the global count (a sum of 16 per-partition counts,
 #   each exact) rounds at up to 15 additions and the ratio once more, each
 #   by at most 2^-24 relatively: under 1e-6 in all.
 # q4: each (partition, category, window) price sum adds ~1.2e6 prices in
-#   f32, as 382 per-batch partial sums; float64 in the oracle.
+#   f32, as 382 per-batch partial sums; the oracle sums the JAX package's
+#   exact f32 one-hot products, by torch's tree sum on the card.
 RTOL = {"q1_ratio": 2e-6, "q4": 1e-4}
 # kernel sums against the plain version on the card: the plain version adds
 # by atomics in a run-dependent order; two f32 orders of n <= 3,300 positive
@@ -272,6 +275,47 @@ def assert_close(name: str, got, want, rtol: float) -> float:
     if not bool((err <= tol).all()):
         raise AssertionError(f"{name}: max |d| {err.max().item()} beyond rtol {rtol}")
     return err.max().item()
+
+
+# ---------------------------------------------------------------------------
+# the generator: the same log on the card as on the CPU
+# ---------------------------------------------------------------------------
+
+
+def check_generator(dev) -> dict:
+    """A log of 4 batches of every partition, built with the port's threefry
+    generator on the card and on the CPU: every field bitwise, except that
+    under a zipf ``key_skew`` other than 0 or 1 (a float64 ``pow``, whose
+    last bit may differ between the two devices' libraries) an auction id
+    and its category may be off by one, in at most 1 lane in 10^4."""
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    row = {"generator": f"S={S} x 4 batches x B={B}"}
+    for key_skew, skew, keys in ((0.0, 0.0, 1000), (1.0, 1.5, NUM_KEYS), (KEY_SKEW, 0.0, NUM_KEYS)):
+        nx = NexmarkConfig(num_partitions=S, num_batches=4, events_per_batch=B,
+                           rate_per_partition=RATE, seed=SEED, skew=skew, num_auctions=keys,
+                           key_skew=key_skew)
+        t0 = time.perf_counter()
+        on_card = generate_log(nx, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_cpu = generate_log(nx, "cpu")
+        t2 = time.perf_counter()
+        off = 0
+        for f in dataclasses.fields(on_cpu):
+            a, b_ = getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)
+            if f.name in ("auction", "category") and key_skew not in (0.0, 1.0):
+                d = (a.to(torch.int64) - b_.to(torch.int64)).abs()
+                off = max(off, int((d != 0).sum()))
+                if int(d.max()) > 1 or off * 10_000 > a.numel():
+                    raise AssertionError(f"generator {f.name}: card and CPU differ in {off} "
+                                         f"lanes, by up to {int(d.max())}")
+            elif not torch.equal(a, b_):
+                raise AssertionError(f"generator key_skew={key_skew} {f.name}: card and CPU "
+                                     "logs differ")
+        row[f"key_skew={key_skew}"] = {"card_s": t1 - t0, "cpu_s": t2 - t1, "ids_off_by_one": off}
+    log(json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -551,17 +595,29 @@ def check_topk_window(dev, calls: dict) -> dict:
     row["bound_ms"], row["bound_by"] = bound_ms(
         nbytes(sv, si, mask) + live * lane_bytes + nbytes(*got), live + sv.numel())
     log(json.dumps(row))
-    # tied prices, duplicate (price, id) pairs, ragged and all-masked lanes
+    # tied prices, duplicate (price, id) pairs, ragged and all-masked lanes;
+    # every lane in its own slot of the 64 (each 1,024-lane tile holds them
+    # all); slots running across tile edges; one slot over every tile
     g = torch.Generator(device=dev).manual_seed(3)
-    for L2, p in ((1, 0.9), (999, 0.9), (16384, 0.9), (4096, 0.0)):
+    lane = torch.arange(16384, device=dev, dtype=torch.int32)
+    for what, L2, p, slot_of in (
+            ("4 slots", 1, 0.9, None), ("4 slots", 999, 0.9, None),
+            ("4 slots", 16384, 0.9, None), ("4 slots", 4096, 0.0, None),
+            ("lane % 64", 16384, 0.9, lambda n: lane[:n] % W_),
+            ("runs of 1,500", 16384, 0.9, lambda n: lane[:n] // 1500),
+            ("one slot", 16384, 0.9, lambda n: torch.full_like(lane[:n], 3))):
         vals = torch.randint(0, 4, (S, L2), generator=g, device=dev).float()
         ids = torch.randint(0, 6, (S, L2), generator=g, device=dev)
-        slots = torch.randint(0, 4, (S, L2), generator=g, device=dev, dtype=torch.int32)
+        if slot_of is None:
+            slots = torch.randint(0, 4, (S, L2), generator=g, device=dev, dtype=torch.int32)
+        else:
+            slots = slot_of(L2).expand(S, L2).contiguous()
         mask = torch.rand((S, L2), generator=g, device=dev) < p
         a2 = (sv, si, vals, ids, slots, mask)
         for got_t, want_t in zip(topk_window.topk_window(*a2), ref.topk_window_ref(*a2)):
-            assert_equal(f"topk_window ties L={L2} p={p}", got_t, want_t)
-    log("topk_window: ties, duplicates, ragged and all-masked lanes bitwise equal")
+            assert_equal(f"topk_window ties {what} L={L2} p={p}", got_t, want_t)
+    log("topk_window: ties, duplicates, ragged and all-masked lanes, 64 slots a tile, "
+        "slots across tile edges and one slot over every tile bitwise equal")
     return row
 
 
@@ -1078,6 +1134,7 @@ def main() -> int:
     per_add, hz = chain_clock()
     log(f"f32 add chain: {per_add:.4f} SM cycles per dependent add at {hz / 1e9:.4f} GHz "
         f"(one thread, 2^22 adds) {card}")
+    check_generator(dev)
     calls = main_path_calls(dev)
     kernel_rows = {
         "window_agg": check_window_agg(dev, calls),

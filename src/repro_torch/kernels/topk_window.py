@@ -10,10 +10,11 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel, check_cuda, ptr
 
-K_MAX = 16  # pairs each thread keeps (csrc/topk_window.cu kKeep)
+K_MAX = 16  # the largest k the kernel takes (csrc/topk_window.cu kMaxK)
+TILE = 1024  # lanes a tile-phase block reads (csrc/topk_window.cu kTile)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("topk_window", "topk_window_launch", [_P] * 8 + [_I] * 4)
+KERNEL = CudaKernel("topk_window", "topk_window_launch", [_P] * 11 + [_I] * 4)
 
 
 def topk_window(
@@ -24,7 +25,9 @@ def topk_window(
     slots: torch.Tensor,  # i32[S, L]
     mask: torch.Tensor,  # bool[S, L]
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the per-window top-k merge on the current stream."""
+    """Launch the per-window top-k merge (its tile and row phases) on the
+    current stream; the tiles' candidate lists come from the caching
+    allocator."""
     S, W, k = state_vals.shape
     if not 1 <= k <= K_MAX:
         raise ValueError(f"topk_window: k={k} outside [1, {K_MAX}]")
@@ -36,8 +39,13 @@ def topk_window(
     check_cuda("ids", ids, torch.int64, (S, L), dev)
     check_cuda("slots", slots, torch.int32, (S, L), dev)
     check_cuda("mask", mask, torch.bool, (S, L), dev)
+    T = -(-L // TILE)
+    cand_vals = torch.empty((S, T, W, k), dtype=torch.float32, device=dev)
+    cand_ids = torch.empty((S, T, W, k), dtype=torch.int64, device=dev)
+    present = torch.empty((S, T, W), dtype=torch.uint8, device=dev)
     out_vals = torch.empty_like(state_vals)
     out_ids = torch.empty_like(state_ids)
     KERNEL(dev, ptr(state_vals), ptr(state_ids), ptr(vals), ptr(ids), ptr(slots),
-           ptr(mask), ptr(out_vals), ptr(out_ids), S, L, W, k)
+           ptr(mask), ptr(cand_vals), ptr(cand_ids), ptr(present), ptr(out_vals),
+           ptr(out_ids), S, L, W, k)
     return out_vals, out_ids

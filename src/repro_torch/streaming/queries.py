@@ -116,13 +116,15 @@ def make_q4(num_partitions: int, window_len: int = 1000, num_slots: int = 16,
         return sv / cv.clamp(min=1.0), ok1 & ok2
 
     def oracle(log: EventBatch, wid: int, partition=None):
-        # float64 sums: the reference for the f32 running sums of the fold
+        # the JAX oracle's f32 sums of one-hot products (each factor 0.0 or
+        # 1.0, so every product is exact), one category at a time
         m = _bid_mask(log, assigner, wid)
-        cat = log.category[m].to(torch.int64)
-        sums = torch.zeros(num_categories, dtype=torch.float64, device=cat.device)
-        sums.index_add_(0, cat, log.price[m].to(torch.float64))
-        cnts = torch.bincount(cat, minlength=num_categories).to(torch.float64)
-        return (sums / cnts.clamp(min=1.0)).to(torch.float32)
+        sums, cnts = [], []
+        for c in range(num_categories):
+            w = (m & (log.category == c)).to(torch.float32)
+            sums.append((w * log.price).sum())
+            cnts.append(w.sum())
+        return torch.stack(sums) / torch.stack(cnts).clamp(min=1.0)
 
     return Query("q4", num_partitions, window_len, assigner, (sum_spec, cnt_spec), None,
                  fold, read, oracle, out_width=num_categories)

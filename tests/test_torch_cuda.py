@@ -109,6 +109,72 @@ def test_topk_window_kernel_matches_plain(dev, L, ties):
         np.testing.assert_array_equal(g.cpu(), w)
 
 
+def _topk_case(case: str, k: int):
+    """Lanes and a valid state (descending, distinct, (-inf, 0) padded) for
+    one shape of the tile and row phases (tiles of 1,024 lanes)."""
+    rng = np.random.default_rng(len(case) * 31 + k)
+    S, W = 3, 64
+    L = {"one_lane": 1, "ragged": 1500, "ragged_large": 16383}.get(case, 4096)
+    vals = (rng.standard_normal((S, L)) * 10).astype(np.float32)
+    ids = rng.integers(0, 2**32, (S, L))
+    slots = rng.integers(0, W, (S, L)).astype(np.int32)
+    mask = rng.random((S, L)) < 0.8
+    lane = np.arange(L)
+    if case == "every_lane_own_slot":  # each tile holds all 64 slots
+        slots[:] = lane % W
+    elif case == "slot_across_tile_edge":  # slot 5 runs from tile 0 into tile 1
+        slots[:] = np.where(lane < 900, 4, np.where(lane < 1900, 5, 6))
+    elif case == "ties_across_tiles":  # duplicate pairs in every tile, one slot
+        vals = rng.integers(0, 4, (S, L)).astype(np.float32)
+        ids = rng.integers(0, 6, (S, L))
+        slots[:] = 9
+    elif case == "all_masked":
+        mask[:] = False
+    sv0 = np.full((S, W, 2 * k), -np.inf, np.float32)
+    si0 = np.zeros((S, W, 2 * k), np.int64)
+    if case == "state_beats_lanes":
+        sv0[..., :k] = 1000.0 + rng.random((S, W, k)) * 10
+    else:
+        sv0[..., :k] = rng.standard_normal((S, W, k)) * 10
+    si0[..., :k] = rng.integers(0, 6, (S, W, k))
+    sv0[:, ::5, k // 2:k] = -np.inf  # rows short of k pairs
+    si0[:, ::5, k // 2:k] = 0
+    sv, si = ref.lex_topk(torch.from_numpy(sv0), torch.from_numpy(si0), k)
+    lanes = [torch.from_numpy(a) for a in (vals, ids, slots, mask)]
+    return sv, si, lanes
+
+
+@pytest.mark.parametrize("case", ["every_lane_own_slot", "slot_across_tile_edge",
+                                  "ties_across_tiles", "one_lane", "ragged", "ragged_large",
+                                  "all_masked", "state_beats_lanes"])
+@pytest.mark.parametrize("k", [1, 8, 16])
+def test_topk_window_tile_and_row_phases(dev, case, k):
+    """Bitwise against the plain version, launched twice: many slots in a
+    tile, a slot across a tile edge, ties and duplicates split over tiles
+    (they collapse in the row phase), one lane, ragged tiles, every lane
+    masked, and state rows that beat every lane."""
+    sv, si, lanes = _topk_case(case, k)
+    want = ref.topk_window_ref(sv, si, *lanes)
+    args = [a.to(dev) for a in (sv, si, *lanes)]
+    for _ in range(2):
+        got = topk_window.topk_window(*args)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu(), w)
+
+
+def test_topk_window_rows_no_lane_reaches_come_back_unchanged(dev):
+    """Slots that no live lane names return their state rows bit for bit."""
+    sv, si, (vals, ids, slots, mask) = _topk_case("ragged_large", 8)
+    slots = slots % 7  # lanes reach slots 0-6 only
+    sv_d, si_d = sv.to(dev), si.to(dev)
+    out_v, out_i = topk_window.topk_window(sv_d, si_d, vals.to(dev), ids.to(dev),
+                                           slots.to(dev), mask.to(dev))
+    assert torch.equal(out_v[:, 7:], sv_d[:, 7:]) and torch.equal(out_i[:, 7:], si_d[:, 7:])
+    want = ref.topk_window_ref(sv, si, vals, ids, slots, mask)
+    np.testing.assert_array_equal(out_v.cpu(), want[0])
+    np.testing.assert_array_equal(out_i.cpu(), want[1])
+
+
 @pytest.mark.parametrize("N,n_seg,p_mask", [(0, 7, 0.8), (1, 512, 0.8), (5000, 1000, 0.8),
                                              (20000, 3, 0.9), (4096, 70_000, 0.0),
                                              (100_000, 1_000_003, 0.7)])

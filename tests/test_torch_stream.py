@@ -6,7 +6,9 @@ query in ``MAKERS``, with delta and full sync, and writes its log, ``oks``,
 stacked on the CPU, folds the same log and must match bitwise, q4's float
 price sums included: both folds add lane by lane into the running sum.
 Also here: the device-side generator's load shape, the oracles (q4's to
-rtol 1e-5: the port sums in float64, the JAX package in f32) and the CLI.
+rtol 1e-5: both sum the same exact f32 one-hot products, but XLA's CPU
+reduce adds them in another order than torch's ``sum``, so a category's
+average can differ in its last bits) and the CLI.
 """
 import dataclasses
 import os
@@ -105,6 +107,8 @@ def test_oracles_match_jax(qname):
                 np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
                 np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).astype(np.int64))
             elif qname == "q4":
+                # not bitwise: the same f32 products, added in XLA's order
+                # there and in torch's here
                 np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
             else:
                 np.testing.assert_array_equal(got.numpy(), np.asarray(want))
