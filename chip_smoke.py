@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. The device: name, count, and ``nvidia-smi``'s name and power limit.
-2. Build the five CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
-   one process per source, all at once.
+2. Build the five CUDA sources under ``src/repro_torch/csrc`` with
+   ``nvcc``, one process per source, all at once, beside a probe of one
+   thread's add chain and an empty kernel (the launch floor).
 3. Build a small log with the port's threefry generator on the card and
    on the CPU and hold the two equal (``check_generator``).  Then hold
    each kernel against its plain PyTorch version on the card, on the
@@ -22,6 +23,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    taking every lane; zipf(1.1) keys over 64), and each of its timed rows
    carries its serial-chain floor: the time one thread takes, measured
    here, for a chain of dependent f32 adds as long as its fullest cell.
+   The merge side of a dense sync round is one fused launch
+   (``delta_merge_join``), held bitwise against its plain version and
+   against the parent's sequence (the standalone ``gated_delta_merge`` and
+   ``crdt_merge`` kernels, then ``_merge_wstate``'s torch ops), both timed
+   on the same inputs; the standalone kernels are still checked and timed
+   on the stacks the fused launch receives.  An empty kernel, timed by the
+   same loop, gives the launch floor beside the launch-bound rows.
 4. Run the dataplane (``build_pipeline``) for every query at a full Nexmark
    deployment: 16 partitions at 625,000 events/s each (nexmark-flink's
    default 10 M events/s in all), 16,384 events per batch, 10 s windows
@@ -29,7 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1,528 batches (40.06 s of event time, about 4.0e8 events).  Hold every
    complete window against the port's own query oracle, delta sync against
    full sync (q4), and a second q4 run against the first, byte for byte;
-   every kernel must have been launched by the queries that use it.  Then
+   every kernel must have been launched by the queries that use it (a
+   dense delta run launches the fused merge once a spec a round and no
+   standalone join; ``crdt_merge`` is launched by the keyed runs alone,
+   once an exchange).  Then
    the hash-sharded keyed dataplane (``build_keyed_pipeline``) on the same
    deployment over 1,000,000 zipf(1.1) auction ids (the repo's million-key
    sweep, ``benchmarks/keyed_scale.py``): every complete window of every
@@ -125,6 +136,11 @@ extern "C" int chain_launch(const float* x, float* out, long long* t, int n, cud
   chain<<<1, 1, 0, s>>>(x, out, t, n);
   return (int)cudaGetLastError();
 }
+__global__ void empty() {}
+extern "C" int empty_launch(cudaStream_t s) {
+  empty<<<1, 32, 0, s>>>();
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -214,10 +230,43 @@ def load_chain(started: tuple) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"chain_floor.cu: nvcc exit {proc.returncode}\n{out}")
-    fn = ctypes.CDLL(str(lib)).chain_launch
+    so = ctypes.CDLL(str(lib))
+    fn = so.chain_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _CHAIN["fn"] = fn
+    so.empty_launch.argtypes = [ctypes.c_void_p]
+    so.empty_launch.restype = ctypes.c_int
+    _CHAIN["empty"] = so.empty_launch
+
+
+def launch_floor() -> dict:
+    """An empty kernel (one warp) timed by :func:`kernel_ms`, and the host
+    µs of its bare ctypes launch: what any launch costs on this card."""
+    empty = _CHAIN["empty"]
+
+    def launch():
+        if empty(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel: launch failed")
+
+    row = {"launch_floor": "empty kernel, 1 warp", **kernel_ms(launch),
+           "launch_us": host_us(launch)}
+    log(json.dumps(row))
+    return row
+
+
+def device_kernels(fn) -> int:
+    """Device kernels (copies and fills included) one call of ``fn`` runs,
+    by ``torch.profiler``, after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def run_chain(n: int) -> tuple[int, int]:
@@ -324,6 +373,8 @@ def check_generator(dev) -> dict:
 
 
 def _cloned(x):
+    if isinstance(x, list):
+        return [_cloned(v) for v in x]
     return x.clone() if torch.is_tensor(x) else x
 
 
@@ -373,7 +424,8 @@ def main_path_calls(dev) -> dict:
     nx = dataclasses.replace(nx, base_ts=int(7 * WINDOW_MS - (nb - 0.5) * nx.batch_span_ms))
     mesh = make_data_mesh(S, dev)
     per = {"window_agg": nb, "topk_window": nb, "gated_delta_merge": nb // SYNC_EVERY,
-           "segment_reduce": nb, "crdt_merge": nb // SYNC_EVERY}
+           "segment_reduce": nb, "crdt_merge": nb // SYNC_EVERY,
+           "delta_merge_join": nb // SYNC_EVERY}
 
     def last(calls):
         return {k: c[len(c) - len(c) // per[k]:] for k, c in calls.items()}
@@ -526,33 +578,53 @@ def gated_rows(wid: torch.Tensor) -> int:
     return int(torch.where(top >= 0, (wid == top).sum(0), 1).sum())
 
 
+# the dense runs whose merge side is recorded: (query maker, its options)
+DENSE_MERGES = {"q1_ratio": ("q1_ratio", {}), "q4": ("q4", {}), "q5": ("q5", {}),
+                "q5_10k": ("q5", {"num_auctions": DENSE_Q5_KEYS})}
+
+
+def merge_inputs(calls: dict, tag: str):
+    """The last sync round's fused-merge calls of a dense run, one a spec:
+    ``[(spec, args)]``."""
+    from repro_torch.launch.stream import MAKERS
+
+    maker, kw = DENSE_MERGES[tag]
+    specs = MAKERS[maker](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS, **kw).shared_specs
+    recorded = calls[tag]["delta_merge_join"]
+    if len(recorded) != len(specs):
+        raise AssertionError(f"{tag}: {len(recorded)} fused merges in a round, {len(specs)} specs")
+    return [(spec, args) for spec, (args, _) in zip(specs, recorded)]
+
+
 def check_gated_delta_merge(dev, calls: dict) -> dict:
+    """The standalone gated merge (the Pallas function's counterpart) on
+    the stacks the fused merge receives on the main path."""
     from repro_torch.kernels import crdt_merge, ops, ref
 
     rows = []
-    # the main path: each delta-synced query's merges of one sync round
     for qn in ("q1_ratio", "q4", "q5"):
-        for i, (args, kw) in enumerate(calls[qn]["gated_delta_merge"]):
-            wid, leaf = args
-            op = kw["op"]
-            R, W_ = wid.shape
-            F = leaf[0, 0].numel()
-            got = ops.gated_delta_merge(wid, leaf, op)
-            name = f"gated_delta_merge {qn} call {i} R={R} W={W_} F={F} {leaf.dtype} {op}"
-            err = assert_equal(name, got, ref.gated_delta_merge_ref(wid, leaf, op))
-            n_rows = gated_rows(wid)
-            row = {"shape": name + f" ({n_rows} of {R * W_} rows gated in)", "max_abs_err": err,
-                   **kernel_ms(lambda: ops.gated_delta_merge(wid, leaf, op)),
-                   "plain_ms": cuda_ms(lambda: ref.gated_delta_merge_ref(wid, leaf, op)),
-                   "library_ms": None}
-            row.update(wrapper_host_us(crdt_merge.KERNEL,
-                                       lambda: ops.gated_delta_merge(wid, leaf, op)))
-            # bytes the merge needs: the wids, the gated rows, the output;
-            # one join per element of a gated row
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                nbytes(wid) + n_rows * F * leaf.element_size() + nbytes(got), n_rows * F)
-            rows.append(row)
-            log(json.dumps(row))
+        for i, (_, args) in enumerate(merge_inputs(calls, qn)):
+            _, wid, _, leaves, joins, _, _ = args
+            for leaf, op in zip(leaves, joins):
+                R, W_ = wid.shape
+                F = leaf[0, 0].numel()
+                got = ops.gated_delta_merge(wid, leaf, op)
+                name = f"gated_delta_merge {qn} call {i} R={R} W={W_} F={F} {leaf.dtype} {op}"
+                err = assert_equal(name, got, ref.gated_delta_merge_ref(wid, leaf, op))
+                n_rows = gated_rows(wid)
+                row = {"shape": name + f" ({n_rows} of {R * W_} rows gated in)",
+                       "max_abs_err": err,
+                       **kernel_ms(lambda: ops.gated_delta_merge(wid, leaf, op)),
+                       "plain_ms": cuda_ms(lambda: ref.gated_delta_merge_ref(wid, leaf, op)),
+                       "library_ms": None}
+                row.update(wrapper_host_us(crdt_merge.KERNEL,
+                                           lambda: ops.gated_delta_merge(wid, leaf, op)))
+                # bytes the merge needs: the wids, the gated rows, the output;
+                # one join per element of a gated row
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes(wid) + n_rows * F * leaf.element_size() + nbytes(got), n_rows * F)
+                rows.append(row)
+                log(json.dumps(row))
     # every dtype and join, random tenants, an all-clean stack
     g = torch.Generator(device=dev).manual_seed(2)
     for dtype, op in ((torch.float32, "min"), (torch.int32, "max"), (torch.int32, "min"),
@@ -568,6 +640,111 @@ def check_gated_delta_merge(dev, calls: dict) -> dict:
     log("gated_delta_merge: every dtype and join bitwise equal, all-clean included")
     return dict(max(rows, key=lambda r: r["bound_ms"]),
                 max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def _merge_outputs(out) -> list:
+    wid, leaves, meta = out
+    return [wid, *leaves, *meta]
+
+
+def merge_edge_case(g, dev, S_: int, R: int, W_: int, fields: list, edge: str):
+    """Arguments of the fused merge with every slot edge: clean on every
+    replica of stack and state (both -1), clean on every delta replica, the
+    state newer than every delta, equal wids; and whole-stack variants."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    state_wid, stack_wid = ints(-1, 6, (S_, W_)), ints(-1, 6, (R, W_))
+    state_wid[:, 0] = stack_wid[:, 0] = -1
+    stack_wid[:, 1] = -1
+    state_wid[:, 2] = 9
+    state_wid[:, 3] = stack_wid[:, 3] = 4
+    if edge == "all clean":
+        stack_wid.fill_(-1)
+    elif edge == "state newer":
+        state_wid.fill_(9)
+    elif edge == "equal wids":
+        state_wid.fill_(2)
+        stack_wid.fill_(2)
+    sl, kl, joins = [], [], []
+    for dtype, op, F in fields:
+        for lead, out in ((S_, sl), (R, kl)):
+            x = torch.randint(0, 256, (lead, W_, F), generator=g, device=dev)
+            out.append(x.to(dtype) if dtype == torch.uint8 else (x - 128).to(dtype) * 3)
+        joins.append(op)
+    sm = [ints(-5, 50, (S_, n)) for n in (16, 16, 3)]
+    km = [ints(-5, 50, (R, n)) for n in (16, 16, 3)]
+    return state_wid, stack_wid, sl, kl, joins, sm, km
+
+
+def check_delta_merge_join(dev, calls: dict, floor: dict) -> dict:
+    """The fused merge side of a dense sync round at every recorded call:
+    bitwise its plain version and the parent's sequence (``merge_delta_stack``
+    on the standalone kernels, then ``_merge_wstate``); kernel, plain and
+    parent µs, host µs of each, and the device kernels one call runs."""
+    from repro_torch.core import wcrdt as W
+    from repro_torch.kernels import crdt_merge, ops, ref
+
+    rows = []
+    for tag in DENSE_MERGES:
+        for i, (spec, args) in enumerate(merge_inputs(calls, tag)):
+            state_wid, stack_wid, sl, kl, joins, sm, km = args
+            cls = type(spec.zero_windows(dev))
+            st = W.WState(state_wid, cls(**dict(zip(cls.KINDS, sl))), *sm)
+            stk = W.WState(stack_wid, cls(**dict(zip(cls.KINDS, kl))), *km)
+
+            def fused():
+                return ops.delta_merge_join(*args)
+
+            def parent():
+                return W._merge_wstate(st, W.merge_delta_stack(spec, stk))
+
+            R, W_ = stack_wid.shape
+            Fs = [x[0, 0].numel() for x in sl]
+            name = (f"delta_merge_join {tag} call {i} S={state_wid.shape[0]} R={R} W={W_} "
+                    f"F={Fs} {[str(x.dtype) for x in sl]} {joins}")
+            got = fused()
+            want = ref.delta_merge_join_ref(*args)
+            p = parent()
+            p = (p.slot_wid, [getattr(p.windows, n) for n in cls.KINDS],
+                 [p.progress, p.folded, p.errors])
+            for k, (a, b, c) in enumerate(zip(_merge_outputs(got), _merge_outputs(want),
+                                              _merge_outputs(p))):
+                assert_equal(f"{name} output {k}", a, b)
+                assert_equal(f"{name} output {k} (parent's sequence)", a, c)
+            n_rows = gated_rows(stack_wid)
+            row = {"shape": name + f" ({n_rows} of {R * W_} rows gated in)", "max_abs_err": 0.0,
+                   **kernel_ms(fused), "plain_ms": cuda_ms(lambda: ref.delta_merge_join_ref(*args)),
+                   "parent_ms": cuda_ms(parent), "library_ms": None,
+                   "launch_floor_ms": floor["ms"],
+                   "device_kernels": device_kernels(fused),
+                   "parent_device_kernels": device_kernels(parent),
+                   "parent_host_us": host_us(parent, iters=20)}
+            row.update(wrapper_host_us(crdt_merge.JOIN_KERNEL, fused))
+            # bytes the merge side needs: both wid stacks, the gated-in rows,
+            # the state leaves and metadata, the stacked metadata, every
+            # output; one join per gated-in element and per state element
+            leaf_bytes = sum(n_rows * F * x.element_size() for F, x in zip(Fs, sl))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes(state_wid, stack_wid, *sl, *sm, *km, *_merge_outputs(got)) + leaf_bytes,
+                sum((n_rows + x.numel() // F) * F for F, x in zip(Fs, sl)))
+            rows.append(row)
+            log(json.dumps(row))
+    # edges: mixed dtypes and joins in one launch, F off every tile width,
+    # R = 1 and R != S, whole-stack clean, state newer, equal wids
+    g = torch.Generator(device=dev).manual_seed(7)
+    mixed = [(torch.float32, "max", 129), (torch.int32, "min", 2), (torch.uint8, "or", 64),
+             (torch.float32, "min", 33), (torch.uint8, "max", 1), (torch.int32, "max", 65),
+             (torch.uint8, "min", 300), (torch.float32, "max", 16)]
+    for S_, R, W_ in ((S, S, NUM_SLOTS), (S, 1, NUM_SLOTS), (3, 5, 7)):
+        for edge in ("mixed", "all clean", "state newer", "equal wids"):
+            args = merge_edge_case(g, dev, S_, R, W_, mixed, edge)
+            for k, (a, b) in enumerate(zip(_merge_outputs(ops.delta_merge_join(*args)),
+                                           _merge_outputs(ref.delta_merge_join_ref(*args)))):
+                assert_equal(f"delta_merge_join edge {edge} S={S_} R={R} W={W_} output {k}", a, b)
+    log("delta_merge_join: 8 fields of mixed dtypes and joins in one launch, R = 1 and "
+        "R != S, clean, newer and equal slots bitwise equal")
+    return max(rows, key=lambda r: r["bound_ms"])
 
 
 def check_topk_window(dev, calls: dict) -> dict:
@@ -705,8 +882,9 @@ def check_segment_reduce(dev, calls: dict) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-def check_crdt_merge(dev, calls: dict) -> dict:
+def check_crdt_merge(dev, calls: dict, floor: dict) -> dict:
     from repro_torch.kernels import crdt_merge, ops, ref
+    from repro_torch.launch.mesh import make_data_mesh
 
     def row_for(name, stack, op, library):
         stack = stack.contiguous()
@@ -722,20 +900,59 @@ def check_crdt_merge(dev, calls: dict) -> dict:
         log(json.dumps(row))
         return row
 
-    rows = {}
-    # the main path: the keyed progress exchange (mesh.pmax, once a round)
-    # and the delta merges' metadata joins
-    for tag in ("keyed", "q1_ratio", "q4", "q5", "q5_10k"):
-        for i, (args, kw) in enumerate(calls[tag]["crdt_merge"]):
-            stack, op = args
-            name = f"crdt_merge {tag} call {i} R={stack.shape[0]} F={stack.shape[1]} {stack.dtype} {op}"
-            rows[(tag, i)] = row_for(name, stack, op, lambda: stack.amax(0))
+    # the main path: the keyed watermark exchange, once a round:
+    # mesh.pmax(progress, where=on), the join written to every row, gated
+    # by a device bool; the parent's three launches timed beside it
+    (args, kw), = calls["keyed"]["crdt_merge"]
+    stack, op = args
+    on = kw["where"]
+    mesh = make_data_mesh(S, dev)
+    R, F = stack.shape
+    name = f"crdt_merge keyed exchange R={R} F={F} {stack.dtype} {op} rows, gated"
+    got = ops.crdt_merge(stack, op, **kw)
+    assert_equal(name, got, ref.crdt_merge_rows_ref(stack, op, on))
+    for gate in (True, False):
+        w = torch.tensor(gate, device=dev)
+        assert_equal(f"{name} where={gate}", ops.crdt_merge(stack, op, rows=True, where=w),
+                     torch.where(w, stack.amax(0).expand_as(stack), stack))
+
+    def exchange():
+        return mesh.pmax(stack, where=on)
+
+    def parent():
+        return torch.where(on, crdt_merge.crdt_merge(stack, op).unsqueeze(0)
+                           .expand_as(stack).contiguous(), stack)
+
+    assert_equal(name + " (parent's sequence)", exchange(), parent())
+    row = {"shape": name, "max_abs_err": 0.0,
+           **kernel_ms(lambda: ops.crdt_merge(stack, op, **kw)),
+           "plain_ms": cuda_ms(lambda: ref.crdt_merge_rows_ref(stack, op, on)),
+           "parent_ms": cuda_ms(parent), "library_ms": None,
+           "amax_ms": cuda_ms(lambda: stack.amax(0)), "launch_floor_ms": floor["ms"],
+           "device_kernels": device_kernels(exchange), "parent_device_kernels":
+           device_kernels(parent), "exchange_host_us": host_us(exchange),
+           "parent_host_us": host_us(parent)}
+    row.update(wrapper_host_us(crdt_merge.MERGE_KERNEL,
+                               lambda: ops.crdt_merge(stack, op, **kw)))
+    # bytes: the stack and the gate read once, every row written; one join
+    # per element
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(stack, on, got), stack.numel())
+    log(json.dumps(row))
+    errs = [0.0]
+    # the standalone [F] mode (the Pallas function's counterpart) on the
+    # stacks the fused merge receives: the tenants and the metadata
+    for tag in DENSE_MERGES:
+        for i, (_, args) in enumerate(merge_inputs(calls, tag)):
+            for what, x in zip(("slot_wid", "progress", "folded", "errors"),
+                               (args[1], *args[6])):
+                nm = f"crdt_merge {tag} call {i} {what} R={x.shape[0]} F={x.shape[1]} {x.dtype} max"
+                errs.append(row_for(nm, x, "max", lambda: x.amax(0))["max_abs_err"])
     # one shard's keyed state (16 slots x 62,500 keys, 4 MB) as a replicated
     # join would see it
     g = torch.Generator(device=dev).manual_seed(5)
     big = torch.rand((S, 1 << 20), generator=g, device=dev)
     row_for(f"crdt_merge R={S} F={1 << 20} float32 max", big, "max", lambda: big.amax(0))
-    # every dtype and join, R = 1, F off the block
+    # every dtype and join, R = 1, F off the block, both modes
     for R, F in ((1, 1000), (S, 257), (3, 100_000)):
         for dtype, op in ((torch.float32, "min"), (torch.int32, "max"), (torch.int32, "min"),
                           (torch.uint8, "or"), (torch.uint8, "max"), (torch.bool, "or")):
@@ -743,8 +960,14 @@ def check_crdt_merge(dev, calls: dict) -> dict:
             x = x.remainder(256).to(dtype) if dtype in (torch.uint8, torch.bool) else x.to(dtype)
             want = x.any(0) if dtype == torch.bool else ref.crdt_merge_ref(x, op)
             assert_equal(f"crdt_merge R={R} F={F} {dtype} {op}", ops.crdt_merge(x, op), want)
-    log("crdt_merge: every dtype and join bitwise equal, R = 1 and ragged F included")
-    return dict(rows[("keyed", 0)], max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+            for gate in (None, True, False):
+                w = None if gate is None else torch.tensor(gate, device=dev)
+                rows_want = want.expand_as(x) if gate in (None, True) else x
+                assert_equal(f"crdt_merge rows R={R} F={F} {dtype} {op} where={gate}",
+                             ops.crdt_merge(x, op, rows=True, where=w), rows_want)
+    log("crdt_merge: every dtype and join bitwise equal in both modes, R = 1, ragged F and "
+        "both gates included")
+    return dict(row, max_abs_err=max(errs))
 
 
 # ---------------------------------------------------------------------------
@@ -825,8 +1048,11 @@ def run_dataplane(dev):
         (oks, vals, sb), dt, peak = run_pipeline(q, mesh, the_log, delta, first, n)
         used = {"topk_window"} if qn == "q7" else {"window_agg"}
         if delta and qn in ("q1_ratio", "q4", "q5"):
-            used |= {"gated_delta_merge", "crdt_merge"}
+            used |= {"delta_merge_join"}
         counts = check_launches(qn, used)
+        if counts["delta_merge_join"] not in (0, n_rounds * len(q.shared_specs)):
+            raise AssertionError(f"{qn}: {counts['delta_merge_join']} fused merges, expected "
+                                 f"one a spec a round")
         for k, c in counts.items():
             launches[k] += c
         done = check_against_oracle(q, the_log, oks, vals, first)
@@ -871,12 +1097,15 @@ def profile_run(name: str, fn) -> dict:
     events = prof.key_averages()
     rows = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows)
+    aten = [e for e in prof.events() if e.name.startswith("aten::") and e.cpu_parent is None]
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
     # the torch ops whose own kernels take the device time, by name
     by_op = sorted((e for e in events if e.device_type == DeviceType.CPU
                     and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
     row = {"profile": name, "batches": 64, "wall_us": wall_us, "device_busy_us": busy,
            "device_idle_share": 1 - busy / wall_us if busy else None,
+           "device_events_per_batch": sum(e.count for e in rows) / 64,
+           "aten_ops_per_batch": len(aten) / 64,
            "top_kernels_us": [[e.key[:90], e.self_device_time_total] for e in top],
            "top_ops_device_us": [[e.key, e.self_device_time_total, e.count] for e in by_op[:10]]}
     log(json.dumps(row))
@@ -1070,7 +1299,7 @@ def run_keyed(dev) -> tuple[list, dict]:
     q = MAKERS["q5"](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS, num_auctions=DENSE_Q5_KEYS)
     first, n = read_window_range(q, SHORT_BATCHES * qx.batch_span_ms)
     (oks, vals, sb), dt, peak = run_pipeline(q, mesh, qlog, True, first, n)
-    counts = check_launches("q5_10k", {"segment_reduce", "gated_delta_merge", "crdt_merge"})
+    counts = check_launches("q5_10k", {"segment_reduce", "delta_merge_join"})
     add(counts)
     done = check_against_oracle(q, qlog, oks, vals, first)
     if done < 1:
@@ -1118,12 +1347,12 @@ def main() -> int:
     t0 = time.perf_counter()
     chain = start_chain_build()
     try:
-        report = build.build(list(ops.KERNELS))
+        report = build.build(ops.SOURCES)
     except BaseException:
         chain[0].kill()  # leave no compiler running
         chain[0].wait()
         raise
-    for kname, r in report.items():
+    for kname, r in sorted(report.items()):
         usage = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"built {kname}.cu in {r['seconds']:.2f} s: " + " | ".join(usage))
     load_chain(chain)
@@ -1134,15 +1363,19 @@ def main() -> int:
     per_add, hz = chain_clock()
     log(f"f32 add chain: {per_add:.4f} SM cycles per dependent add at {hz / 1e9:.4f} GHz "
         f"(one thread, 2^22 adds) {card}")
+    floor = launch_floor()
     check_generator(dev)
     calls = main_path_calls(dev)
     kernel_rows = {
         "window_agg": check_window_agg(dev, calls),
-        "gated_delta_merge": check_gated_delta_merge(dev, calls),
+        "delta_merge_join": check_delta_merge_join(dev, calls, floor),
         "topk_window": check_topk_window(dev, calls["q7"]),
         "segment_reduce": check_segment_reduce(dev, calls),
-        "crdt_merge": check_crdt_merge(dev, calls),
+        "crdt_merge": check_crdt_merge(dev, calls, floor),
     }
+    # the Pallas function's counterpart, off the main path since the fused
+    # merge took its place: checked and timed, reported with the fused row
+    standalone = check_gated_delta_merge(dev, calls)
     del calls
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1161,19 +1394,26 @@ def main() -> int:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
 
-    src = {"window_agg": "window_agg.py:90", "gated_delta_merge": "crdt_merge.py:96",
+    src = {"window_agg": "window_agg.py:90", "delta_merge_join": "crdt_merge.py:96",
            "topk_window": "topk_window.py:46", "segment_reduce": "segment_reduce.py:76",
            "crdt_merge": "crdt_merge.py:35"}
+    kernel_rows["delta_merge_join"]["standalone_gated_delta_merge"] = {
+        k_: standalone[k_] for k_ in ("shape", "ms", "plain_ms", "bound_ms", "host_us",
+                                      "launch_us")}
     kernels = []
     for k, row in kernel_rows.items():
         kernels.append({
-            "name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
+            "name": k, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{ops.KERNELS[k].source}.cu",
             "replaces": f"src/repro/kernels/{src[k]}", "launches": launches[k],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "host_us": row["host_us"],
             "launch_us": row["launch_us"], "shape": row["shape"],
-            **{k_: row[k_] for k_ in ("ms_batches", "chain_floor_ms", "sort_ms", "wrapper_ms")
+            **{k_: row[k_] for k_ in ("ms_batches", "chain_floor_ms", "sort_ms", "wrapper_ms",
+                                      "parent_ms", "parent_host_us", "launch_floor_ms",
+                                      "device_kernels", "parent_device_kernels",
+                                      "standalone_gated_delta_merge")
                if k_ in row},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

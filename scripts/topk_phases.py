@@ -55,7 +55,7 @@ def main() -> int:
     from repro_torch.kernels import topk_window as tw
 
     dev = torch.device("cuda")
-    build.build(list(ops.KERNELS))
+    build.build(ops.SOURCES)
     calls = cs.main_path_calls(dev)
     (args, _), = calls["q7"]["topk_window"]
     want = ref.topk_window_ref(*args)

@@ -367,7 +367,8 @@ def zero_baseline(spec: WSpec, num_replicas: int, device=None):
 def merge_delta_stack(spec: WSpec, stacked: WState) -> WState:
     """Join an ``[R]``-stacked pile of deltas slot-aware; the replica axis
     goes.  Elementwise window lattices ride the gated delta-merge kernel;
-    custom ones (TopK) take the log-depth pairwise join."""
+    custom ones (TopK) take the log-depth pairwise join.  The dataplane
+    joins the stack into its replicas with :func:`join_delta_stack`."""
     kinds = field_kinds(stacked.windows)
     if not all(isinstance(k, Reduce) for k in kinds.values()):
         return join_stacked(stacked, merge_fn=_merge_wstate)
@@ -385,6 +386,24 @@ def merge_delta_stack(spec: WSpec, stacked: WState) -> WState:
     )
 
 
+def join_delta_stack(spec: WSpec, state: WState, stacked: WState) -> WState:
+    """``_merge_wstate(state, merge_delta_stack(spec, stacked))``: the
+    ``[R]``-stacked deltas merged once and joined into each replica of the
+    ``[S]``-stacked ``state``.  When every window field is elementwise this
+    is one fused kernel launch (``ops.delta_merge_join``); TopK takes the
+    two steps."""
+    kinds = field_kinds(state.windows)
+    if not all(isinstance(k, Reduce) for k in kinds.values()):
+        return _merge_wstate(state, merge_delta_stack(spec, stacked))
+    wid, leaves, (progress, folded, errors) = ops.delta_merge_join(
+        state.slot_wid, stacked.slot_wid,
+        [getattr(state.windows, n) for n in kinds], [getattr(stacked.windows, n) for n in kinds],
+        [k.value for k in kinds.values()],
+        [state.progress, state.folded, state.errors],
+        [stacked.progress, stacked.folded, stacked.errors])
+    return WState(wid, type(state.windows)(**dict(zip(kinds, leaves))), progress, folded, errors)
+
+
 def delta_axis_join(
     spec: WSpec, state: WState, baseline_folded: torch.Tensor,
     baseline_progress: torch.Tensor, mesh,
@@ -394,14 +413,13 @@ def delta_axis_join(
     Each replica extracts its delta since the shared post-sync baseline; the
     deltas are gathered (the stack itself, on one device), the stack is
     merged once, and each replica joins the one merged delta into its own
-    state — the result of ``S`` identical merges.  Returns ``(state,
-    shipped)`` with ``shipped`` f32 ``[S]``, each replica's modeled wire
-    bytes.
+    state — the result of ``S`` identical merges (:func:`join_delta_stack`).
+    Returns ``(state, shipped)`` with ``shipped`` f32 ``[S]``, each
+    replica's modeled wire bytes.
     """
     delta = delta_since(spec, state, baseline_folded, baseline_progress)
     shipped = delta_nbytes(delta)
-    merged = merge_delta_stack(spec, mesh.all_gather(delta))
-    return _merge_wstate(state, merged), shipped
+    return join_delta_stack(spec, state, mesh.all_gather(delta)), shipped
 
 
 # ---------------------------------------------------------------------------

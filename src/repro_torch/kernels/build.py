@@ -123,13 +123,13 @@ class CudaKernel:
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device=None):
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
     (on ``device`` when given)."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

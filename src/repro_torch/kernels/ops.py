@@ -24,7 +24,9 @@ SPARSE_KEY_THRESHOLD = 1024
 # every launched kernel, for launch accounting
 KERNELS = {"window_agg": _agg.KERNEL, "topk_window": _topk.KERNEL,
            "gated_delta_merge": _merge.KERNEL, "segment_reduce": _seg.KERNEL,
-           "crdt_merge": _merge.MERGE_KERNEL}
+           "crdt_merge": _merge.MERGE_KERNEL, "delta_merge_join": _merge.JOIN_KERNEL}
+# the csrc/<name>.cu sources those kernels are built from
+SOURCES = sorted({k.source for k in KERNELS.values()})
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -63,15 +65,21 @@ def segment_reduce(vals, segs, mask, n_seg: int, op: str = "sum", init=None) -> 
     return _seg.segment_reduce(vals, segs, mask, n_seg, op=op, init=init)
 
 
-def crdt_merge(stack: torch.Tensor, op: str = "max") -> torch.Tensor:
+def crdt_merge(stack: torch.Tensor, op: str = "max", rows: bool = False,
+               where: torch.Tensor | None = None) -> torch.Tensor:
     """Join an ``[R, ...]`` replica stack over its first axis: ``[...]``.
-    Bool stacks join as uint8."""
+    With ``rows`` the join goes to every row, ``[R, ...]``, and where the
+    bool scalar ``where`` is False each row keeps its own value.  Bool
+    stacks join as uint8."""
     if _on_cpu(stack):
+        if rows:
+            return _ref.crdt_merge_rows_ref(stack, op=op, where=where)
         return _ref.crdt_merge_ref(stack, op=op)
-    R, trailing = stack.shape[0], stack.shape[1:]
+    R = stack.shape[0]
     flat = stack.reshape(R, -1)
     flat = flat.to(torch.uint8) if stack.dtype == torch.bool else flat.contiguous()
-    return _merge.crdt_merge(flat, op=op).to(stack.dtype).reshape(trailing)
+    out = _merge.crdt_merge(flat, op=op, rows=rows, where=where).to(stack.dtype)
+    return out.reshape(stack.shape if rows else stack.shape[1:])
 
 
 def gated_delta_merge(wid_stack, leaf_stack, op: str = "max") -> torch.Tensor:
@@ -87,6 +95,22 @@ def gated_delta_merge(wid_stack, leaf_stack, op: str = "max") -> torch.Tensor:
     trailing = leaf_stack.shape[2:]
     flat = leaf_stack.reshape(R, W, -1).contiguous()
     return _merge.gated_delta_merge(wid_stack.contiguous(), flat, op=op).reshape(W, *trailing)
+
+
+def delta_merge_join(state_wid, stack_wid, state_leaves, stack_leaves, joins, state_meta,
+                     stack_meta):
+    """The merge side of a delta-sync round: the slot-gated join of the
+    ``[R]``-stacked deltas (``stack_*``) joined slot-aware into each of the
+    ``S`` replicas (``state_*``).  Leaves ``[S|R, W, ...]``, one join each;
+    metadata i32 ``[S|R, n]``, joined by max.  Returns ``(slot_wid [S, W],
+    leaves, meta)``."""
+    if _on_cpu(state_wid):
+        return _ref.delta_merge_join_ref(state_wid, stack_wid, state_leaves, stack_leaves,
+                                         joins, state_meta, stack_meta)
+    return _merge.delta_merge_join(
+        state_wid.contiguous(), stack_wid.contiguous(),
+        [a.contiguous() for a in state_leaves], [b.contiguous() for b in stack_leaves], joins,
+        [m.contiguous() for m in state_meta], [m.contiguous() for m in stack_meta])
 
 
 def topk_window(state_vals, state_ids, vals, ids, slots, mask):

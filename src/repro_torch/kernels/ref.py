@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lattice import bitwise_or_reduce
+from repro_torch.core.lattice import Reduce, bitwise_or_reduce, join_leaf
 
 NEUTRAL = {"sum": 0.0, "count": 0.0, "max": float("-inf"), "min": float("inf")}
 
@@ -129,6 +129,44 @@ def gated_delta_merge_ref(
         raise ValueError(op)
     clean = (top < 0).reshape(top.shape[0], *extra)
     return torch.where(clean, leaf_stack[0], red)
+
+
+def crdt_merge_rows_ref(stack: torch.Tensor, op: str = "max",
+                        where: torch.Tensor | None = None) -> torch.Tensor:
+    """The join of an ``[R, ...]`` stack over R, written to every row; where
+    the bool scalar ``where`` is False each row keeps its own value."""
+    joined = crdt_merge_ref(stack, op).expand_as(stack)
+    if where is None:
+        return joined.contiguous()
+    return torch.where(where, joined, stack)
+
+
+def delta_merge_join_ref(
+    state_wid: torch.Tensor,  # i32[S, W] each replica's ring tenants
+    stack_wid: torch.Tensor,  # i32[R, W] the gathered deltas' tenants (-1 clean)
+    state_leaves: list,  # per window field, [S, W, ...]
+    stack_leaves: list,  # per window field, [R, W, ...]
+    joins: list,  # per window field, "max" / "min" / "or"
+    state_meta: list,  # i32 [S, n] each (progress, folded, errors)
+    stack_meta: list,  # i32 [R, n] each
+) -> tuple[torch.Tensor, list, list]:
+    """The merge side of a delta-sync round: the slot-gated join of the
+    ``[R]`` delta stack (:func:`gated_delta_merge_ref` per field, the max of
+    the wids and of the metadata), joined slot-aware into each of the ``S``
+    replicas (``wcrdt._merge_wstate``): per slot the larger wid wins
+    outright, equal wids join.  Returns ``(slot_wid, leaves, meta)``,
+    stacked over S."""
+    top = crdt_merge_ref(stack_wid, "max")  # [W]
+    state_newer = state_wid > top
+    same = state_wid == top
+    leaves = []
+    for a, b, op in zip(state_leaves, stack_leaves, joins):
+        m = gated_delta_merge_ref(stack_wid, b, op).expand_as(a)
+        extra = (1,) * (a.dim() - 2)
+        leaves.append(torch.where(same.reshape(*same.shape, *extra), join_leaf(Reduce(op), a, m),
+                                  torch.where(state_newer.reshape(*same.shape, *extra), a, m)))
+    meta = [torch.maximum(a, crdt_merge_ref(b, "max")) for a, b in zip(state_meta, stack_meta)]
+    return torch.maximum(state_wid, top), leaves, meta
 
 
 def lex_sort(vals: torch.Tensor, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,9 +3,9 @@
 In the JAX package each partition is one device of the ``data`` mesh axis.
 In the port each of ``S`` partitions is a row of a leading stacked axis on
 one device, and these collectives act on that axis: ``all_gather`` is the
-identity on the stack, ``pmax`` is the replica-stack join (the
-``crdt_merge`` kernel) broadcast back to every row, and ``all_to_all`` is a
-``[S_src, S_dst, ...]`` transpose.
+identity on the stack, ``pmax`` is the replica-stack join broadcast back
+to every row (one ``crdt_merge`` launch, optionally gated), and
+``all_to_all`` is a ``[S_src, S_dst, ...]`` transpose.
 The dataplane reaches replicas only through this interface, so a
 multi-device version can take its place without touching the dataplane.
 """
@@ -34,9 +34,13 @@ class StackMesh:
         """Hand one (unstacked) state to every replica: ``[S, ...]`` copies."""
         return map_tensors(lambda x: x.unsqueeze(0).expand(self.size, *x.shape).contiguous(), state)
 
-    def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        """Elementwise max over the replicas, broadcast back to each."""
-        return self.replicate(ops.crdt_merge(x, "max"))
+    def pmax(self, x: torch.Tensor, where: torch.Tensor | None = None) -> torch.Tensor:
+        """Elementwise max over the replicas, broadcast back to each; where
+        the bool scalar ``where`` is False, each replica keeps its own row
+        (``torch.where(where, pmax(x), x)``, read on the device).  One
+        ``crdt_merge`` launch on the card; a multi-device mesh would apply
+        ``where`` after its collective."""
+        return ops.crdt_merge(x, "max", rows=True, where=where)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Row ``s`` of ``x`` ``[S_src, S_dst, ...]`` sends block ``d`` to

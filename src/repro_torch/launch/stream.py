@@ -3,8 +3,8 @@
 The whole Holon pipeline on one device: ``S`` partitions stacked on a
 leading axis (``launch/mesh.py``), batched folds through the windowed-fold
 and top-k kernels, and every ``sync_every`` folds one background-sync
-round — delta-state by default (each replica's dirty slots, merged once by
-the gated delta-merge kernel and joined into every replica), or the
+round — delta-state by default (each replica's dirty slots, merged and
+joined into every replica by one fused delta-merge launch a spec), or the
 full-state join with ``delta_sync=False``.  Windows are read on the device
 at the end.  :func:`build_keyed_pipeline` is the hash-sharded keyed
 dataplane: keys are routed to one owner partition each, folded by the
@@ -157,8 +157,7 @@ class KeyedPipeline:
                 wm = torch.where(valid, ts, lowest).amax(1)  # each source batch's watermark
                 state = W.increment_watermark(self.spec, state, rows, wm)
             on = wm_sync[r]
-            state = dataclasses.replace(
-                state, progress=torch.where(on, mesh.pmax(state.progress), state.progress))
+            state = dataclasses.replace(state, progress=mesh.pmax(state.progress, where=on))
             sync = sync + on.to(torch.float32) * float(S * 4)
         return state, shuffle, sync, prov
 

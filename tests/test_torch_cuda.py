@@ -237,6 +237,9 @@ def test_kernel_wrappers_count_launches(dev):
                     z, torch.zeros((S, L), dtype=torch.int64, device=dev), slots, mask)
     ops.segment_reduce(z[0], slots[0], mask[0], 7)
     ops.crdt_merge(slots, "max")
+    wid = torch.zeros((S, W), dtype=torch.int32, device=dev)
+    ops.delta_merge_join(wid, wid, [torch.zeros((S, W, 3), device=dev)],
+                         [torch.zeros((S, W, 3), device=dev)], ["max"], [slots], [slots])
     for n, k in ops.KERNELS.items():
         assert k.launches == before[n] + 1, n
 
@@ -448,3 +451,143 @@ def test_segment_reduce_completes_before_the_next_op(dev):
         seen.append(outs[-1].clone())
     for s in seen:
         np.testing.assert_array_equal(s.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the fused merge side of a delta-sync round, and the gated keyed exchange
+# ---------------------------------------------------------------------------
+
+MERGE_FIELDS = {  # (dtype, join, trailing shape) per window field
+    "f32 max": [(torch.float32, "max", (16,))],
+    "f32 max x2, q4": [(torch.float32, "max", (16, 5)), (torch.float32, "max", (16, 5))],
+    "f32 max, q5": [(torch.float32, "max", (16, 64))],
+    "pncounter": [(torch.float32, "max", (16, 3)), (torch.float32, "max", (16, 3))],
+    "f32 min": [(torch.float32, "min", (7,))],
+    "i32 max / min": [(torch.int32, "max", (33,)), (torch.int32, "min", (65,))],
+    "u8 or / max / min": [(torch.uint8, "or", (5,)), (torch.uint8, "max", (200,)),
+                          (torch.uint8, "min", (1,))],
+    "mixed": [(torch.float32, "max", (129,)), (torch.int32, "min", (2,)),
+              (torch.uint8, "or", (64,)), (torch.float32, "min", (3, 11))],
+}
+
+
+def _merge_case(rng, S, R, Wn, fields, edge):
+    state_wid = rng.integers(-1, 6, (S, Wn)).astype(np.int32)
+    stack_wid = rng.integers(-1, 6, (R, Wn)).astype(np.int32)
+    state_wid[:, 0] = stack_wid[:, 0] = -1  # clean everywhere: both -1
+    stack_wid[:, 1] = -1  # clean on every delta replica
+    state_wid[:, 2] = 9  # the state newer than the merged delta
+    state_wid[:, 3] = stack_wid[:, 3] = 4  # equal wids everywhere
+    if edge == "all_clean":
+        stack_wid[:] = -1
+    elif edge == "state_newer":
+        state_wid[:] = 9
+    elif edge == "equal_wids":
+        state_wid[:] = stack_wid[:] = 2
+    sl, kl, joins = [], [], []
+    for dt, op, rest in fields:
+        for lead, out in ((S, sl), (R, kl)):
+            if dt == torch.uint8:
+                x = torch.from_numpy(rng.integers(0, 256, (lead, Wn, *rest)).astype(np.uint8))
+            else:
+                x = torch.from_numpy(rng.standard_normal((lead, Wn, *rest)) * 50).to(dt)
+            out.append(x)
+        joins.append(op)
+    P = 16
+    sm = [torch.from_numpy(rng.integers(-5, 50, (S, n)).astype(np.int32)) for n in (P, P, 3)]
+    km = [torch.from_numpy(rng.integers(-5, 50, (R, n)).astype(np.int32)) for n in (P, P, 3)]
+    return (torch.from_numpy(state_wid), torch.from_numpy(stack_wid), sl, kl, joins, sm, km)
+
+
+def _to(x, dev):
+    return [_to(v, dev) for v in x] if isinstance(x, list) else (
+        x.to(dev) if torch.is_tensor(x) else x)
+
+
+@pytest.mark.parametrize("edge", ["mixed", "all_clean", "state_newer", "equal_wids"])
+@pytest.mark.parametrize("S,R,Wn", [(16, 16, 64), (16, 1, 64), (3, 5, 7)])
+@pytest.mark.parametrize("fields", list(MERGE_FIELDS))
+def test_delta_merge_join_kernel_matches_plain(dev, fields, S, R, Wn, edge):
+    """One launch over every field of a spec (mixed dtypes in one launch
+    included) is bitwise its plain version: the new tenants, every leaf and
+    the metadata, with each slot edge in every case."""
+    rng = np.random.default_rng(S * 7 + R + Wn + len(fields) + len(edge))
+    args = _merge_case(rng, S, R, Wn, MERGE_FIELDS[fields], edge)
+    before = ops.KERNELS["delta_merge_join"].launches
+    got = ops.delta_merge_join(*_to(list(args), dev))
+    assert ops.KERNELS["delta_merge_join"].launches == before + 1
+    want = ref.delta_merge_join_ref(*args)
+    np.testing.assert_array_equal(got[0].cpu(), want[0])
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.cpu(), w)
+
+
+def test_delta_merge_join_wide_field(dev):
+    """q5's shape at 10,000 auctions: one field of 160,000 features."""
+    rng = np.random.default_rng(31)
+    args = _merge_case(rng, 16, 16, 64, [(torch.float32, "max", (16, 10_000))], "mixed")
+    got = ops.delta_merge_join(*_to(list(args), dev))
+    want = ref.delta_merge_join_ref(*args)
+    for g, w in zip([got[0]] + got[1] + got[2], [want[0]] + want[1] + want[2]):
+        np.testing.assert_array_equal(g.cpu(), w)
+
+
+def test_q4_sync_merge_side_is_one_launch(dev):
+    """One sync round of each q4 spec: the merge side (``join_delta_stack``)
+    is exactly one device kernel, the fused launch, and neither standalone
+    join runs; the new state equals the CPU run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import wstate_to_numpy
+    from repro_torch.core import wcrdt as W
+    from repro_torch.core.lattice import map_tensors
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.stream import MAKERS
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    S = 4
+    q = MAKERS["q4"](S, window_len=100, num_slots=16)
+    log = generate_log(NexmarkConfig(num_partitions=S, num_batches=4, events_per_batch=256), dev)
+    mesh = make_data_mesh(S, dev)
+    part = torch.arange(S, device=dev)
+    shared, local = q.init_shared(dev), q.init_local(dev)
+    for i in range(4):
+        shared, local = q.fold(shared, local, log.batch(i), part, batch_idx=i)
+    torch.cuda.synchronize()
+    for spec, st in zip(q.shared_specs, shared):
+        delta = W.delta_since(spec, st, *W.zero_baseline(spec, S, dev))
+        assert bool((delta.slot_wid >= 0).any())
+        torch.cuda.synchronize()  # the profile sees only the merge side's kernels
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = W.join_delta_stack(spec, st, mesh.all_gather(delta))
+            torch.cuda.synchronize()
+        counts = {n: k.launches - before[n] for n, k in ops.KERNELS.items()}
+        assert counts == {n: int(n == "delta_merge_join") for n in counts}, counts
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+        host = lambda x: x.cpu()  # noqa: E731
+        want = wstate_to_numpy(W.join_delta_stack(spec, map_tensors(host, st),
+                                                  map_tensors(host, delta)))
+        for k, v in wstate_to_numpy(got).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("on", [True, False, None])
+@pytest.mark.parametrize("R,F,dtype", [(16, 16, torch.int32), (1, 5, torch.int32),
+                                       (3, 1000, torch.float32), (16, 300, torch.uint8)])
+def test_crdt_merge_rows_gated_is_torch_where(dev, on, R, F, dtype):
+    """The keyed exchange's mode: the join written to every row, gated by a
+    device bool, bitwise ``torch.where`` of the plain join; one launch."""
+    rng = np.random.default_rng(R + F)
+    x = torch.from_numpy(rng.integers(-1000, 1000, (R, F))).to(dtype)
+    where = None if on is None else torch.tensor(on)
+    before = ops.KERNELS["crdt_merge"].launches
+    got = ops.crdt_merge(x.to(dev), "max", rows=True, where=_to(where, dev))
+    assert ops.KERNELS["crdt_merge"].launches == before + 1
+    joined = ref.crdt_merge_ref(x, "max").expand_as(x)
+    want = joined if on is None else torch.where(where, joined, x)
+    assert got.shape == (R, F) and got.dtype == dtype
+    np.testing.assert_array_equal(got.cpu(), want)

@@ -333,7 +333,7 @@ def test_build_names_libraries_by_source_hash():
     """Each source builds for sm_90a into its own library named by a hash of
     the source and flags; nothing is built when a module is imported."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    paths = {n: build.lib_path(n) for n in ops.KERNELS}
+    paths = {n: build.lib_path(n) for n in ops.SOURCES}
     assert len(set(paths.values())) == 5
     for n, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(n + "-")
