@@ -48,8 +48,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    apart, a second run byte for byte; a crash-replay schedule and a healed
    watermark partition against the clean run, and a plane never healed;
    and dense q5 at 10,000 auctions, whose fold takes the segment reduce.
-5. Print events/s and sync bytes per round per run, with the card.
-6. A JSON line ``{"kernels": [...]}``, then the last line
+5. Run the discrete-event runtime (``repro_torch.runtime``) on the card at
+   the paper's section 5.2 deployment, as ``benchmarks/failure_recovery.py``
+   runs it (``SimConfig()``: 5 nodes, 10 partitions, 1,024 events a batch at
+   10,000 events/s a partition, 400 batches, 1 s windows, a 64-slot ring,
+   sync every 100 ms, checkpoints every 1 s): q7 under the baseline and
+   under a concurrent failure of two nodes, the Flink-like baseline under
+   the same failure, and q4 under the baseline.  Hold the concurrent run's
+   deduplicated records to the baseline's bit for bit (exactly-once), every
+   baseline record to the query's oracle (q7 bitwise, q4 to phase 4's
+   tolerance), and, at 100 batches with tracing on, the card's JSONL trace
+   to the CPU run's byte for byte (q7 and q4), recording that run's kernel
+   calls and holding one of each kernel and shape against its plain
+   version.  Print each run's wall seconds, folds and merges, host µs per
+   call, launches, and its simulated latencies, recovery and sync bytes
+   (sim-time figures, the same on any device).
+6. Print events/s and sync bytes per round per run, with the card.
+7. A JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
@@ -96,6 +111,16 @@ SHORT_BATCHES = 512
 CRASH_AFTER, REPLAY_FROM = 199, 160  # every shard re-folds 160-199 after step 199
 PARTITIONED = (10, 30)  # watermark rounds 10-29 cut off, then healed
 DENSE_Q5_KEYS = 10_000  # the keyed sweep's dense comparand
+# the runtime deployment: the paper's section 5.2 setup as
+# benchmarks/failure_recovery.py runs it, SimConfig()'s defaults (5 nodes,
+# 10 partitions, 1,024 events a batch at 10,000 events/s a partition,
+# 1,000 ms windows, a 64-slot ring, sync every 100 ms, checkpoints every 1 s)
+RUNTIME_BATCHES = 400  # about 41 s of event time
+RUNTIME_PARITY_BATCHES = 100  # the card against the CPU, trace bytes
+RUNTIME_PROFILE_BATCHES = 40  # the profiled q7 run
+# the harness's per-call dataplane entries, each clocked on the host (the
+# marker is the host copy of a replica's coverage, a device round trip)
+RUNTIME_CALLS = ("fold_fn", "delta_merge_fn", "merge_fn", "delta_fn", "read_fn", "marker_of")
 # the segment reduce against its plain version on the card, which sums by
 # atomics in another order (the path's sums are of 1.0s, exact either way)
 SEG_SUM_RTOL = 1e-5
@@ -1080,7 +1105,7 @@ def run_dataplane(dev):
     return results, launches
 
 
-def profile_run(name: str, fn) -> dict:
+def profile_run(name: str, fn, batches: int = 64) -> dict:
     """Device busy share of one run of ``fn`` (after a warm one), from a
     ``torch.profiler`` trace: the sum of device-side event times (kernels,
     copies, fills; one stream, so they do not overlap) over the wall time."""
@@ -1102,10 +1127,10 @@ def profile_run(name: str, fn) -> dict:
     # the torch ops whose own kernels take the device time, by name
     by_op = sorted((e for e in events if e.device_type == DeviceType.CPU
                     and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
-    row = {"profile": name, "batches": 64, "wall_us": wall_us, "device_busy_us": busy,
+    row = {"profile": name, "batches": batches, "wall_us": wall_us, "device_busy_us": busy,
            "device_idle_share": 1 - busy / wall_us if busy else None,
-           "device_events_per_batch": sum(e.count for e in rows) / 64,
-           "aten_ops_per_batch": len(aten) / 64,
+           "device_events_per_batch": sum(e.count for e in rows) / batches,
+           "aten_ops_per_batch": len(aten) / batches,
            "top_kernels_us": [[e.key[:90], e.self_device_time_total] for e in top],
            "top_ops_device_us": [[e.key, e.self_device_time_total, e.count] for e in by_op[:10]]}
     log(json.dumps(row))
@@ -1314,6 +1339,226 @@ def run_keyed(dev) -> tuple[list, dict]:
     return results, launches, prof
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the discrete-event runtime on the card
+# ---------------------------------------------------------------------------
+
+
+class CallClock:
+    """Wraps one dataplane method of a harness instance: calls and host
+    seconds (the time to enqueue the call's work; the harness reads the
+    result back on the host right after, at its own round trips)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, 0.0
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def row(self) -> dict:
+        return {"calls": self.calls,
+                "host_us_per_call": self.seconds / self.calls * 1e6 if self.calls else None}
+
+
+def call_ops(fn) -> dict:
+    """Top-level torch ops and device kernels one call of ``fn`` runs, by
+    ``torch.profiler``, after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"torch_ops": sum(1 for e in events
+                             if e.name.startswith("aten::") and e.cpu_parent is None),
+            "device_kernels": sum(1 for e in events if e.device_type == DeviceType.CUDA)}
+
+
+def recovery_time_ms(consumer, baseline_avg: float, window_len: float) -> float:
+    """Width of the latency spike, as ``benchmarks/failure_recovery.py``
+    measures it: from the first window whose latency exceeds 3x the
+    failure-free average until latencies return below it."""
+    t, lat = consumer.latency_series()
+    bad = lat > 3.0 * max(baseline_avg, 1.0)
+    return float(t[bad].max() - t[bad].min() + window_len) if bad.any() else 0.0
+
+
+def runtime_run(name: str, harness, scenario, horizon: float, used: set, card: str,
+                base_avg: float | None) -> tuple:
+    """One timed run of a harness on the card (``HolonHarness.run`` /
+    ``FlinkHarness.run``, the body of ``run_holon`` / ``run_flink``), with
+    every kernel's launch count set to 0 just before it; raises unless
+    exactly the kernels in ``used`` were launched."""
+    clocks = {k: CallClock(getattr(harness, k)) for k in RUNTIME_CALLS if hasattr(harness, k)}
+    for k, c in clocks.items():
+        setattr(harness, k, c)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = harness.run(scenario, horizon)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_launches(name, used)
+    stats = c.latency_stats()
+    cfg = harness.cfg
+    calls = {k.removesuffix("_fn"): v.row() for k, v in clocks.items()}
+    if "fold_fn" in clocks:  # the torch ops and device kernels of one call
+        node = next(n for n in harness.nodes.values() if n.alive and n.owned)
+        pid, replica = node.owned[0], node.replica
+        delta = clocks["delta_fn"].fn(replica, harness.zero_base)
+        calls["fold"].update(call_ops(lambda: clocks["fold_fn"].fn(
+            replica, node.locals[pid], harness.batch(pid, 0), pid, 0)))
+        calls["delta_merge"].update(call_ops(lambda: clocks["delta_merge_fn"].fn(replica, delta)))
+    row = {"runtime": name, "wall_s": wall, "launches": counts, **calls,
+           "windows": len(c.records), "duplicates": c.duplicates,
+           "sim_latency_avg_ms": stats["avg"], "sim_latency_p99_ms": stats["p99"],
+           "sim_recovery_ms": recovery_time_ms(c, stats["avg"] if base_avg is None else base_avg,
+                                               cfg.window_len),
+           "sim_sync_mb": c.sync_bytes / 1e6, "sim_full_sync_mb": c.sync_bytes_full / 1e6,
+           "card": card}
+    log(json.dumps(row))
+    return c, row
+
+
+def check_runtime_oracle(q, log_, consumer, rtol: float | None) -> int:
+    """Every record of a failure-free run against the query's oracle over
+    the whole log (q7 and q4 are global: one value a window)."""
+    want = {}
+    for (p, wid), rec in sorted(consumer.records.items()):
+        if wid not in want:
+            if q.name == "q7":
+                v, i = q.oracle(log_, wid)
+                want[wid] = torch.cat([v, i.to(torch.float32)]).cpu()
+            else:
+                want[wid] = q.oracle(log_, wid).reshape(-1).cpu()
+        got = torch.from_numpy(rec.value)
+        if rtol is None:
+            assert_equal(f"runtime {q.name} partition {p} window {wid} (oracle)", got, want[wid])
+        else:
+            assert_close(f"runtime {q.name} partition {p} window {wid}", got, want[wid], rtol)
+    return len(want)
+
+
+def same_records(ref, got, what: str) -> None:
+    """Exactly-once: every record of ``ref`` is in ``got`` with its value
+    bit for bit."""
+    missing = set(ref.records) - set(got.records)
+    if missing:
+        raise AssertionError(f"{what}: lost outputs {sorted(missing)[:5]}")
+    for k, r in ref.records.items():
+        if not np.array_equal(got.records[k].value, r.value):
+            raise AssertionError(f"{what}: record {k} differs")
+
+
+def runtime_kernel_calls(calls: dict, dev) -> dict:
+    """Hold one recorded runtime call of each kernel and shape against its
+    plain version; returns how many calls and shapes each kernel had."""
+    from repro_torch.kernels import ops, ref, topk_window
+
+    def shape_of(x):
+        if torch.is_tensor(x):
+            return tuple(x.shape), str(x.dtype)
+        return tuple(shape_of(v) for v in x) if isinstance(x, list) else x
+
+    seen, out = set(), {}
+    for kname, recorded in calls.items():
+        shapes = set()
+        for args, kw in recorded:
+            sig = (kname, shape_of(list(args)), shape_of([kw[k] for k in sorted(kw)]))
+            shapes.add(sig)
+            if sig in seen:
+                continue
+            seen.add(sig)
+            if kname == "window_agg":
+                window_agg_row(dev, f"runtime window_agg {sig[1:]}", args, kw, timed=False)
+            elif kname == "topk_window":
+                for a, b in zip(topk_window.topk_window(*args), ref.topk_window_ref(*args)):
+                    assert_equal(f"runtime topk_window {sig[1:]}", a, b)
+            elif kname == "delta_merge_join":
+                for a, b in zip(_merge_outputs(ops.delta_merge_join(*args)),
+                                _merge_outputs(ref.delta_merge_join_ref(*args))):
+                    assert_equal(f"runtime delta_merge_join {sig[1:]}", a, b)
+            else:
+                raise AssertionError(f"the runtime called {kname}, which it does not use")
+        if recorded:
+            out[kname] = {"calls": len(recorded), "shapes": len(shapes)}
+    return out
+
+
+def run_runtime(dev, card: str) -> dict:
+    """Phase 5: the paper's failure-recovery deployment on the card, checked;
+    returns each kernel's launches over the timed runs."""
+    from repro_torch.runtime import FailureScenario, FlinkHarness, HolonHarness, SimConfig
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+    from repro_torch.streaming.queries import make_q4, make_q7
+
+    cfg = SimConfig(num_batches=RUNTIME_BATCHES)
+    horizon = cfg.horizon_ms + 20_000
+    q7 = make_q7(cfg.num_partitions, window_len=cfg.window_len, num_slots=cfg.num_slots)
+    q4 = make_q4(cfg.num_partitions, window_len=cfg.window_len, num_slots=cfg.num_slots)
+    concurrent = FailureScenario.concurrent(nodes=cfg.initial_membership[:2])
+    launches = {}
+
+    def run(name, harness, scenario, used, base_avg=None):
+        c, row = runtime_run(name, harness, scenario, horizon, used, card, base_avg)
+        for k, n in row["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        return c, row
+
+    h = HolonHarness(cfg, q7, device=dev)
+    base, row = run("holon q7 baseline", h, None, {"topk_window"})
+    n = check_runtime_oracle(q7, h.log, base, None)
+    log(f"runtime q7 baseline: {len(base.records)} records over {n} windows equal the oracle "
+        "bitwise")
+    conc, _ = run("holon q7 concurrent", HolonHarness(cfg, q7, device=dev), concurrent,
+                  {"topk_window"}, row["sim_latency_avg_ms"])
+    same_records(base, conc, "runtime q7 concurrent")
+    log(f"runtime q7 concurrent: {len(conc.records)} records, {conc.duplicates} duplicates "
+        "deduplicated; every baseline record equal bit for bit (exactly-once)")
+    run("flink q7 concurrent", FlinkHarness(cfg, q7, device=dev), concurrent, set())
+    h = HolonHarness(cfg, q4, device=dev)
+    base4, _ = run("holon q4 baseline", h, None, {"window_agg", "delta_merge_join"})
+    n = check_runtime_oracle(q4, h.log, base4, RTOL["q4"])
+    log(f"runtime q4 baseline: {len(base4.records)} records over {n} windows equal the oracle "
+        f"within rtol {RTOL['q4']}")
+
+    # device busy share of a short q7 run (a batch here is one partition's)
+    pcfg = dataclasses.replace(cfg, num_batches=RUNTIME_PROFILE_BATCHES)
+    plog = generate_log(NexmarkConfig(
+        num_partitions=pcfg.num_partitions, num_batches=pcfg.num_batches,
+        events_per_batch=pcfg.events_per_batch, rate_per_partition=pcfg.rate_per_partition,
+        seed=pcfg.seed), dev)
+    profile_run("runtime q7", lambda: HolonHarness(pcfg, q7, log=plog, device=dev).run(),
+                batches=pcfg.num_partitions * pcfg.num_batches)
+
+    # the card against the host: the same trace bytes, sim time being
+    # independent of the device; the card run's kernel calls are recorded
+    short = dataclasses.replace(cfg, num_batches=RUNTIME_PARITY_BATCHES, obs=True)
+    for q in (q7, q4):
+        on_cpu = HolonHarness(short, q, device="cpu")
+        on_cpu.run()
+        on_card = HolonHarness(short, q, device=dev)
+        with recording_kernel_calls() as calls:
+            on_card.run()
+        trace = on_cpu.obs.export_jsonl()
+        if on_card.obs.export_jsonl() != trace:
+            raise AssertionError(f"runtime {q.name}: the card's trace differs from the CPU's")
+        checked = runtime_kernel_calls(calls, dev)
+        del calls
+        log(f"runtime {q.name} at {RUNTIME_PARITY_BATCHES} batches: card and CPU traces "
+            f"byte-identical ({len(trace)} bytes, {trace.count(chr(10))} lines); recorded "
+            f"kernel calls held against their plain versions, one of each shape: "
+            f"{json.dumps(checked)}")
+    return launches
+
+
 def same_state(a, b, what: str) -> None:
     from repro_torch.convert import wstate_to_numpy
 
@@ -1388,8 +1633,15 @@ def main() -> int:
     results += keyed_results
     for k, c in keyed_launches.items():
         launches[k] += c
+    log(f"keyed runs done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== phase 5: throughput {card}")
+    log(f"== phase 5: the runtime, paper section 5.2 deployment, {RUNTIME_BATCHES} batches "
+        f"{card}")
+    for k, c in run_runtime(dev, card).items():
+        launches[k] += c
+    log(f"runtime done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 6: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")

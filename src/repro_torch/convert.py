@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.wcrdt import WSpec, WState
+from repro_torch.runtime.storage import PartitionCheckpoint
 from repro_torch.streaming.events import EventBatch
 
 
@@ -64,3 +65,27 @@ def wstate_to_numpy(state: WState) -> dict:
     d = {k: out(getattr(state, k)) for k in ("slot_wid", "progress", "folded", "errors")}
     d.update({f"windows.{n}": out(getattr(state.windows, n)) for n in state.windows.KINDS})
     return d
+
+
+def checkpoint_from_numpy(ckpt, shared_specs, local_spec: WSpec | None,
+                          device="cpu") -> PartitionCheckpoint:
+    """A runtime checkpoint of the JAX package as the port's.
+
+    ``ckpt`` has a ``PartitionCheckpoint``'s fields, with ``shared`` a
+    tuple of numpy-array dicts (the keys of :func:`wstate_from_numpy`), one
+    per shared spec, and ``local`` one such dict or None.  Each state gains
+    the port's replica axis of 1; the coverage marker stays host numpy
+    i32."""
+    baseline = ckpt.baseline
+    if baseline is not None:
+        baseline = tuple((np.array(f, np.int32), np.array(p, np.int32)) for f, p in baseline)
+    return PartitionCheckpoint(
+        nxt_idx=int(ckpt.nxt_idx),
+        nxt_odx=int(ckpt.nxt_odx),
+        emitted_upto=int(ckpt.emitted_upto),
+        shared=tuple(wstate_from_numpy(spec, d, device)
+                     for spec, d in zip(shared_specs, ckpt.shared)),
+        local=None if ckpt.local is None else wstate_from_numpy(local_spec, ckpt.local, device),
+        baseline=baseline,
+        epoch=int(ckpt.epoch),
+    )

@@ -15,7 +15,9 @@ from typing import ClassVar
 
 import torch
 
-from repro_torch.core.lattice import Reduce
+from repro_torch.core.lattice import (
+    Reduce, float_to_ordered_u32, lex_join, ordered_u32_to_float,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import lex_topk
 
@@ -54,6 +56,26 @@ def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
     return new
 
 
+def _actor_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Sum ``[S, P, ...]`` actor rows over ``P`` by a fixed pairwise tree:
+    pad ``P`` with zero rows to a power of two, then add neighbours, ``(0,
+    1), (2, 3), ...``, level by level.  Each level sums a dimension of size 2,
+    whose result does not depend on the order in which torch adds, so the
+    card and the host read the same bits (a torch sum over ``P`` adds in an
+    order of its own, another on the card than on the host).  For ``P <= 3``
+    the tree is the left fold of the JAX package's ``jnp.sum(axis=0)`` on
+    XLA's CPU, so reads are bitwise; above, they differ from it by the
+    rounding of at most ``log2(P)`` additions a lane."""
+    S, P, *key = rows.shape
+    levels = (P - 1).bit_length()
+    if P < 2**levels:
+        rows = torch.nn.functional.pad(rows, (0, 0) * len(key) + (0, 2**levels - P))
+    x = rows.reshape(S, *(2,) * levels, *key)
+    for d in range(levels, 0, -1):
+        x = x.sum(d)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class GCounter:
     """slots[S, W, actor, *key]; merge = elementwise max; value = sum(actors)."""
@@ -70,7 +92,7 @@ class GCounter:
         return GCounter(_actor_fold(self.slots, slot_ids, mask, actor, amounts, keys))
 
     def window_value(self, slot: int) -> torch.Tensor:
-        return self.slots[:, slot].sum(1)
+        return _actor_sum(self.slots[:, slot])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +116,7 @@ class PNCounter:
         )
 
     def window_value(self, slot: int) -> torch.Tensor:
-        return self.pos[:, slot].sum(1) - self.neg[:, slot].sum(1)
+        return _actor_sum(self.pos[:, slot]) - _actor_sum(self.neg[:, slot])
 
 
 def _reg_fold(v, slot_ids, mask, vals, keys, op):
@@ -162,6 +184,54 @@ class GSet:
 
     def window_value(self, slot: int) -> torch.Tensor:
         return self.bits[:, slot].to(torch.bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class LWWReg:
+    """Last-writer-wins register: the lexicographic (ts, payload) lattice.
+
+    ``val`` is the ordered-u32 payload carried as int64 (see
+    ``core/lattice.py``); a float goes in through
+    :func:`float_to_ordered_u32`.  Not windowed, and indifferent to leading
+    dimensions, as in the JAX package."""
+
+    ts: torch.Tensor  # i32[*key_shape]
+    val: torch.Tensor  # i64[*key_shape], u32 values
+    KINDS: ClassVar[dict] = {"ts": "custom", "val": "custom"}
+
+    @classmethod
+    def zero(cls, key_shape=(), device=None):
+        return cls(
+            ts=torch.full(key_shape, -(2**31), dtype=torch.int32, device=device),
+            val=torch.zeros(key_shape, dtype=torch.int64, device=device),
+        )
+
+    def merge(self, other: "LWWReg") -> "LWWReg":
+        return LWWReg(*lex_join(self.ts, self.val, other.ts, other.val))
+
+    def set_float(self, ts, x, key=None) -> "LWWReg":
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.val.device)
+        return self._set(ts, float_to_ordered_u32(x), key)
+
+    def set_u32(self, ts, x, key=None) -> "LWWReg":
+        return self._set(ts, torch.as_tensor(x, dtype=torch.int64, device=self.val.device), key)
+
+    def _set(self, ts, u, key) -> "LWWReg":
+        ts = torch.as_tensor(ts, dtype=torch.int32, device=self.ts.device)
+        if key is None:
+            return LWWReg(*lex_join(self.ts, self.val, ts, u))
+        nts, nval = lex_join(self.ts[key], self.val[key], ts, u)
+        new_ts, new_val = self.ts.clone(), self.val.clone()
+        new_ts[key], new_val[key] = nts, nval
+        return LWWReg(new_ts, new_val)
+
+    @property
+    def value_float(self) -> torch.Tensor:
+        return ordered_u32_to_float(self.val)
+
+    @property
+    def value_u32(self) -> torch.Tensor:
+        return self.val
 
 
 def _topk_join_sorted(vals_a, ids_a, vals_b, ids_b, k: int):

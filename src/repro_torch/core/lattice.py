@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -83,6 +83,20 @@ def elementwise_join(a, b):
     })
 
 
+def join_many(states: Sequence[Any], merge_fn: Callable[[Any, Any], Any] | None = None):
+    """Log-depth fold of N replica states with an associative join."""
+    merge_fn = merge_fn or join
+    xs = list(states)
+    if not xs:
+        raise ValueError("join_many of empty sequence")
+    while len(xs) > 1:
+        nxt = [merge_fn(xs[i], xs[i + 1]) for i in range(0, len(xs) - 1, 2)]
+        if len(xs) % 2 == 1:
+            nxt.append(xs[-1])
+        xs = nxt
+    return xs[0]
+
+
 def join_stacked(stacked, merge_fn: Callable[[Any, Any], Any] | None = None):
     """Join a state whose tensors carry a leading replica axis ``[R, ...]``.
 
@@ -124,3 +138,61 @@ def bitwise_or_reduce(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     if x.dtype == torch.bool:
         return x.any(dim)
     return functools.reduce(torch.bitwise_or, x.unbind(dim))
+
+
+def axis_reduce_leaf(kind: Reduce, x: torch.Tensor) -> torch.Tensor:
+    """Elementwise lattice join of a leaf over its leading replica axis
+    (the stacked counterpart of the JAX package's ``pmax``/``pmin``
+    all-reduce): ``[R, ...] -> [...]``."""
+    if kind is Reduce.MAX:
+        return x.amax(0)
+    if kind is Reduce.MIN:
+        return x.amin(0)
+    if kind is Reduce.OR:
+        return bitwise_or_reduce(x, 0)
+    raise ValueError(f"unknown reduce kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Order-preserving packings: let lexicographic lattices (LWW, arg-max) ride a
+# plain MAX reduction.
+#
+# The JAX package packs into uint32.  torch's uint32 has no ``>``, ``max``
+# or ``where``-friendly ops, so the port carries the ordered payload as
+# int64 holding the u32 value (0 <= u < 2**32): int64 order is u32 order,
+# and ``convert.py`` turns it back into uint32 for the JAX side.  The
+# packing is a bit reinterpretation (``Tensor.view``), so every f32 bit
+# pattern survives the round trip, subnormals included: nothing here
+# flushes them to zero.
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def float_to_ordered_u32(x: torch.Tensor) -> torch.Tensor:
+    """Monotone bijection f32 -> u32 (as int64): ``a < b  <=>  f(a) < f(b)``
+    (the IEEE 754 trick: flip every bit of a negative, the sign bit of a
+    positive)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _U32
+    return torch.where(bits >= _SIGN, ~bits & _U32, bits | _SIGN)
+
+
+def ordered_u32_to_float(u: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`float_to_ordered_u32` (int64 holding u32 in)."""
+    u = u.to(torch.int64)
+    bits = torch.where(u < _SIGN, ~u & _U32, u & (_SIGN - 1))
+    # the u32 bit pattern as an i32 of the same bits
+    bits = torch.where(bits >= _SIGN, bits - (1 << 32), bits).to(torch.int32)
+    return bits.contiguous().view(torch.float32)
+
+
+def lex_join(ts_a: torch.Tensor, val_a: torch.Tensor, ts_b: torch.Tensor,
+             val_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lexicographic (timestamp, payload) join — the LWW-register lattice.
+
+    Larger timestamp wins; ties go to the larger payload (the ordered-u32
+    compare, on int64), so the join is commutative, associative and
+    idempotent."""
+    a_wins = (ts_a > ts_b) | ((ts_a == ts_b) & (val_a >= val_b))
+    return torch.where(a_wins, ts_a, ts_b), torch.where(a_wins, val_a, val_b)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import crdt as crdts
 from repro_torch.core.crdt import _per_replica
 from repro_torch.core.lattice import (
-    Reduce, field_kinds, join, join_stacked, map_fields,
+    Reduce, axis_reduce_leaf, field_kinds, join, join_many, join_stacked, map_fields,
 )
 from repro_torch.core.window import Tumbling, WindowAssigner, expand_events
 from repro_torch.kernels import ops
@@ -256,24 +256,21 @@ def window_value(spec: WSpec, state: WState, wid: int):
 
     ok=False means not complete or already evicted.  A complete window whose
     slot holds an older tenant (or nothing) is globally empty and reads as
-    the CRDT's zero aggregate, ok=True.
+    the CRDT's zero aggregate, ok=True: each replica's slot row is picked
+    from the state or the zero windows first, then read once.
     """
     slot = wid % spec.num_slots
     tenant = state.slot_wid[:, slot]
     resident = tenant == wid
     ok = window_complete(spec, state, wid) & ~(tenant > wid)
-    S = tenant.shape[0]
-    zero = map_fields(lambda x: x.expand(S, *x.shape),
-                      spec.zero_windows(tenant.device))
-    val = spec.read(state.windows, slot)
-    zval = spec.read(zero, slot)
-    if isinstance(val, tuple):
-        return tuple(_pick_rows(resident, v, z) for v, z in zip(val, zval)), ok
-    return _pick_rows(resident, val, zval), ok
 
+    def pick(x, z):  # the slot's rows [S, 1, ...]
+        rows = x[:, slot]
+        m = resident.reshape(-1, *(1,) * (rows.dim() - 1))
+        return torch.where(m, rows, z[slot]).unsqueeze(1)
 
-def _pick_rows(m: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.where(m.reshape(-1, *(1,) * (a.dim() - 1)), a, b)
+    picked = map_fields(pick, state.windows, spec.zero_windows(tenant.device))
+    return spec.read(picked, 0), ok
 
 
 def merge(spec: WSpec, a: WState, b: WState) -> WState:
@@ -285,6 +282,30 @@ def axis_join(spec: WSpec, state: WState, mesh) -> WState:
     stack (log-depth), and hand the join back to every replica."""
     joined = join_stacked(mesh.all_gather(state), merge_fn=_merge_wstate)
     return mesh.replicate(joined)
+
+
+def axis_join_aligned(spec: WSpec, state: WState, mesh) -> WState:
+    """Full-state sync of replicas that hold the same ``slot_wid`` (lockstep
+    windows, as the step-windowed training-metrics lattice does): each
+    elementwise leaf joins by its reduce over the stack (``amax``, ``amin``
+    or bitwise or), broadcast back to every replica; a custom window lattice
+    (TopK) joins the replicas with :func:`join_many`."""
+    kinds = field_kinds(state.windows)
+    if not all(isinstance(k, Reduce) for k in kinds.values()):
+        whole = join_many([map_fields(lambda x: x[i:i + 1], state.windows)
+                           for i in range(state.slot_wid.shape[0])])
+    windows = type(state.windows)(**{
+        n: axis_reduce_leaf(k, getattr(state.windows, n)) if isinstance(k, Reduce)
+        else getattr(whole, n)[0]
+        for n, k in kinds.items()
+    })
+    return mesh.replicate(WState(
+        slot_wid=state.slot_wid.amax(0),
+        windows=windows,
+        progress=state.progress.amax(0),
+        folded=state.folded.amax(0),
+        errors=state.errors.amax(0),
+    ))
 
 
 # ---------------------------------------------------------------------------

@@ -65,8 +65,16 @@ class Hopping:
         start = wid * self.hop
         return (ts >= start) & (ts < start + self.window_len)
 
+    def start_ts(self, wid):
+        return wid * self.hop
+
     def end_ts(self, wid):
         return wid * self.hop + self.window_len
+
+    def complete(self, wid, gwm):
+        """Final, and the same on every replica, once the global watermark
+        passes the window's end."""
+        return gwm >= self.end_ts(wid)
 
     def first_dirty_wid(self, frontier_ts):
         """``floor((frontier_ts - window_len) / hop) + 1``, clamped at 0."""

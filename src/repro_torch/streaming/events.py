@@ -35,3 +35,17 @@ class EventBatch:
 
     def map(self, fn) -> "EventBatch":
         return EventBatch(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
+
+
+def empty_batch(B: int, device=None) -> EventBatch:
+    """A ``[B]`` batch with every lane invalid."""
+    z = dict(device=device)
+    return EventBatch(
+        ts=torch.zeros((B,), dtype=torch.int32, **z),
+        kind=torch.zeros((B,), dtype=torch.int32, **z),
+        auction=torch.zeros((B,), dtype=torch.int64, **z),
+        price=torch.zeros((B,), dtype=torch.float32, **z),
+        category=torch.zeros((B,), dtype=torch.int32, **z),
+        bidder=torch.zeros((B,), dtype=torch.int64, **z),
+        valid=torch.zeros((B,), dtype=torch.bool, **z),
+    )

@@ -45,6 +45,22 @@ class Query:
             return None
         return self.local_spec.zero(self.num_partitions, device)
 
+    def merge_shared(self, a: tuple[WState, ...], b: tuple[WState, ...]) -> tuple[WState, ...]:
+        """Slot-aware join of two stacked shared parts, spec by spec (``b``
+        may be one replica, joined into every replica of ``a``)."""
+        return tuple(W.merge(spec, x, y) for spec, x, y in zip(self.shared_specs, a, b))
+
+    def global_watermark(self, shared, local) -> torch.Tensor:
+        """Each replica's global watermark, ``[S]``: the first shared spec's,
+        or the local state's when the query shares nothing."""
+        if self.shared_specs:
+            return W.global_watermark(self.shared_specs[0], shared[0])
+        return W.global_watermark(self.local_spec, local)
+
+    def window_of(self, ts):
+        """Newest window containing ``ts`` (the only one, under Tumbling)."""
+        return self.assigner.window_of(torch.as_tensor(ts, dtype=torch.int32))
+
 
 def _local_gcounter(window_len: int, num_slots: int, assigner) -> WSpec:
     return W.wgcounter(window_len, num_slots, 1, assigner=assigner)

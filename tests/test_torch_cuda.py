@@ -591,3 +591,28 @@ def test_crdt_merge_rows_gated_is_torch_where(dev, on, R, F, dtype):
     want = joined if on is None else torch.where(where, joined, x)
     assert got.shape == (R, F) and got.dtype == dtype
     np.testing.assert_array_equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("qname", ["q4", "q7"])
+def test_runtime_on_card_matches_cpu(dev, qname):
+    """The discrete-event runtime at ``tests/test_exactly_once.py``'s SMALL
+    size, tracing on: the card's JSONL trace is byte for byte the CPU run's
+    (simulated time does not depend on the device, and the fold, merge and
+    read give the same bits), and the card run went through the kernels."""
+    from repro_torch.runtime import HolonHarness, SimConfig
+    from repro_torch.streaming.queries import make_q4, make_q7
+
+    cfg = SimConfig(num_nodes=3, num_partitions=6, num_batches=60, events_per_batch=512,
+                    rate_per_partition=10_000.0, window_len=500, num_slots=32,
+                    ckpt_interval_ms=300.0, sync_interval_ms=50.0, obs=True)
+    make = {"q4": make_q4, "q7": make_q7}[qname]
+    q = make(cfg.num_partitions, window_len=cfg.window_len, num_slots=cfg.num_slots)
+    traces = []
+    for d in ("cpu", dev):
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        h = HolonHarness(cfg, q, device=d)
+        h.run()
+        traces.append(h.obs.export_jsonl())
+        launched = {n for n, k in ops.KERNELS.items() if k.launches > before[n]}
+    assert traces[0] == traces[1]
+    assert launched == ({"topk_window"} if qname == "q7" else {"window_agg", "delta_merge_join"})
