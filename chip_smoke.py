@@ -62,9 +62,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    calls and holding one of each kernel and shape against its plain
    version.  Print each run's wall seconds, folds and merges, host µs per
    call, launches, and its simulated latencies, recovery and sync bytes
-   (sim-time figures, the same on any device).
-6. Print events/s and sync bytes per round per run, with the card.
-7. A JSON line ``{"kernels": [...]}``, then the last line
+   (sim-time figures, the same on any device).  Then the audited runs:
+   the concurrent failure, Holon and the Flink-like baseline, traced with
+   the online monitor on (``SimConfig.obs_monitor``), on the card and on
+   the CPU at 100 batches: traces byte for byte, both audited ``ok``
+   (``obs/audit.py``) with equal reports, the live monitor equal to a
+   replay of its trace with no violation, equal critical-path reports
+   (``obs/critpath.py``).  Last, both at the full 400 batches on the card:
+   traced and monitored at the default ring, which holds the whole trace;
+   traced, monitored and spilled to a spool beyond a 4,096-record ring;
+   then untraced once more.  Both traced runs audit ``ok`` with nothing
+   dropped and the same report.  Print their wall seconds beside the two
+   untraced runs' (the host cost of tracing and monitoring, and of
+   tracing, monitoring and spilling) and the monitor's own host seconds,
+   the auditor's time to recover and to settle beside the script's own
+   recovery figure (sim time), the critical path's phase split, and the
+   host seconds of the analysis over the spilled trace.
+6. Run the four examples (``examples/torch/*.py``) through their
+   ``main(argv)`` at their defaults on the card, timed, and on the CPU:
+   each asserts its own oracle where it has one, and every line the card
+   run prints must equal the CPU run's; the first kernel call of each
+   signature on the card is held against its plain version.  Then the
+   training-metrics lattice (``training/metrics.py``: 16 workers, 10-step
+   windows, 8 slots, 200 steps a worker), folded one worker at a time and
+   stacked, merged in two orders and joined over a ``StackMesh``, every
+   state bitwise the same run's on the CPU and every read within rtol
+   1e-6; its fold kernel's calls (one lane a replica) are recorded, held
+   against the plain version and timed as in phase 3.
+7. Print events/s and sync bytes per round per run, with the card.
+8. A JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
@@ -75,9 +101,13 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import importlib.util
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -118,6 +148,16 @@ DENSE_Q5_KEYS = 10_000  # the keyed sweep's dense comparand
 RUNTIME_BATCHES = 400  # about 41 s of event time
 RUNTIME_PARITY_BATCHES = 100  # the card against the CPU, trace bytes
 RUNTIME_PROFILE_BATCHES = 40  # the profiled q7 run
+# the trace ring of the full-depth traced runs: the default (65,536 records)
+# holds all of Holon's ~46,600 and Flink's ~5,600, so a smaller ring makes
+# both spill to the spool
+RUNTIME_SPILL_CAP = 1 << 12
+# the examples (examples/torch/*.py), each run on the card at its defaults
+EXAMPLES = ("quickstart", "nexmark_stream", "hot_items", "failure_recovery_demo")
+# the training-metrics lattice: 16 workers, 10-step windows, an 8-slot
+# ring, 200 steps a worker
+METRIC_WORKERS, METRIC_WINDOW, METRIC_SLOTS, METRIC_STEPS = 16, 10, 8, 200
+METRIC_READ_RTOL = 1e-6  # the JAX package's own test tolerance for reads
 # the harness's per-call dataplane entries, each clocked on the host (the
 # marker is the host copy of a replica's coverage, a device round trip)
 RUNTIME_CALLS = ("fold_fn", "delta_merge_fn", "merge_fn", "delta_fn", "read_fn", "marker_of")
@@ -403,20 +443,38 @@ def _cloned(x):
     return x.clone() if torch.is_tensor(x) else x
 
 
+def _shape_of(x):
+    if torch.is_tensor(x):
+        return tuple(x.shape), str(x.dtype)
+    return tuple(_shape_of(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+def call_signature(args, kwargs) -> tuple:
+    """A kernel call's shapes, dtypes and other arguments."""
+    return _shape_of(list(args)), _shape_of([kwargs[k] for k in sorted(kwargs)])
+
+
 @contextlib.contextmanager
-def recording_kernel_calls():
+def recording_kernel_calls(distinct: bool = False):
     """Record every call the dataplane makes to a kernel's dispatcher in
     ``kernels/ops.py`` (which still runs as usual): yields ``{kernel:
-    [(args, kwargs), ...]}`` in call order, tensors cloned as they came."""
+    [(args, kwargs), ...]}`` in call order, tensors cloned as they came.
+    With ``distinct``, only the first call of each signature is kept, so a
+    long run clones almost nothing."""
     from repro_torch.kernels import ops
 
     calls = {name: [] for name in ops.KERNELS}
     saved = {name: getattr(ops, name) for name in ops.KERNELS}
+    seen = set()
 
     def recorder(name):
         def call(*args, **kwargs):
-            calls[name].append(([_cloned(a) for a in args],
-                                {k: _cloned(v) for k, v in kwargs.items()}))
+            sig = (name, call_signature(args, kwargs)) if distinct else None
+            if sig not in seen:
+                if distinct:
+                    seen.add(sig)
+                calls[name].append(([_cloned(a) for a in args],
+                                    {k: _cloned(v) for k, v in kwargs.items()}))
             return saved[name](*args, **kwargs)
         return call
 
@@ -1462,16 +1520,11 @@ def runtime_kernel_calls(calls: dict, dev) -> dict:
     plain version; returns how many calls and shapes each kernel had."""
     from repro_torch.kernels import ops, ref, topk_window
 
-    def shape_of(x):
-        if torch.is_tensor(x):
-            return tuple(x.shape), str(x.dtype)
-        return tuple(shape_of(v) for v in x) if isinstance(x, list) else x
-
     seen, out = set(), {}
     for kname, recorded in calls.items():
         shapes = set()
         for args, kw in recorded:
-            sig = (kname, shape_of(list(args)), shape_of([kw[k] for k in sorted(kw)]))
+            sig = (kname, *call_signature(args, kw))
             shapes.add(sig)
             if sig in seen:
                 continue
@@ -1517,12 +1570,14 @@ def run_runtime(dev, card: str) -> dict:
     n = check_runtime_oracle(q7, h.log, base, None)
     log(f"runtime q7 baseline: {len(base.records)} records over {n} windows equal the oracle "
         "bitwise")
-    conc, _ = run("holon q7 concurrent", HolonHarness(cfg, q7, device=dev), concurrent,
-                  {"topk_window"}, row["sim_latency_avg_ms"])
+    base_avg = row["sim_latency_avg_ms"]
+    conc, conc_row = run("holon q7 concurrent", HolonHarness(cfg, q7, device=dev), concurrent,
+                         {"topk_window"}, base_avg)
     same_records(base, conc, "runtime q7 concurrent")
     log(f"runtime q7 concurrent: {len(conc.records)} records, {conc.duplicates} duplicates "
         "deduplicated; every baseline record equal bit for bit (exactly-once)")
-    run("flink q7 concurrent", FlinkHarness(cfg, q7, device=dev), concurrent, set())
+    _, flink_row = run("flink q7 concurrent", FlinkHarness(cfg, q7, device=dev), concurrent,
+                       set())
     h = HolonHarness(cfg, q4, device=dev)
     base4, _ = run("holon q4 baseline", h, None, {"window_agg", "delta_merge_join"})
     n = check_runtime_oracle(q4, h.log, base4, RTOL["q4"])
@@ -1556,7 +1611,347 @@ def run_runtime(dev, card: str) -> dict:
             f"byte-identical ({len(trace)} bytes, {trace.count(chr(10))} lines); recorded "
             f"kernel calls held against their plain versions, one of each shape: "
             f"{json.dumps(checked)}")
+
+    audited_parity(dev, cfg, q7, concurrent)
+    audited_full_depth(dev, run, cfg, q7, concurrent, card,
+                       {"holon": (conc_row, base_avg), "flink": (flink_row, None)})
     return launches
+
+
+def check_audit(what: str, harness):
+    """The auditor's report on a finished run, and the live monitor against
+    a replay of the same trace; raises unless the report is ``ok``, the
+    monitor saw every record and raised no violation, and the replay gives
+    the live monitor's violation and warning ids."""
+    from repro_torch.obs import audit_harness, replay
+
+    rep = audit_harness(harness)
+    if not rep.ok:
+        raise AssertionError(f"{what}: the audit failed\n{rep}")
+    mon = harness.monitor
+    if mon.fed != harness.obs.buf.total:
+        raise AssertionError(f"{what}: the monitor saw {mon.fed} of {harness.obs.buf.total} records")
+    if mon.violations():
+        raise AssertionError(f"{what}: the monitor raised {[str(a) for a in mon.violations()]}")
+    events = harness.obs.buf.all_events() if harness.obs.buf.spilled else harness.obs.events()
+    again = replay(events, harness.cfg)
+    if (again.violation_ids(), again.warning_ids()) != (mon.violation_ids(), mon.warning_ids()):
+        raise AssertionError(f"{what}: the live monitor's alerts {mon.warning_ids()} differ from "
+                             f"the replay's {again.warning_ids()}")
+    return rep
+
+
+def audited_parity(dev, cfg, q7, concurrent) -> None:
+    """The concurrent failure, Holon and the Flink-like baseline, traced with
+    the online monitor on, on the card and on the CPU at the parity depth:
+    the same trace bytes, both runs audited ``ok`` with the same report, the
+    live monitor equal to a replay with no violation, the same critical-path
+    report.  A re-emitted window carries the digest of its first emission
+    (the auditor's ``[exactly-once]``), so a replayed re-fold on the card
+    gives the bits of the first fold."""
+    from repro_torch.obs import analyze_harness
+    from repro_torch.runtime import FlinkHarness, HolonHarness
+
+    short = dataclasses.replace(cfg, num_batches=RUNTIME_PARITY_BATCHES, obs=True,
+                                obs_monitor=True)
+    horizon = short.horizon_ms + 20_000
+    for name, cls in (("holon", HolonHarness), ("flink", FlinkHarness)):
+        on_cpu, on_card = cls(short, q7, device="cpu"), cls(short, q7, device=dev)
+        for h in (on_cpu, on_card):
+            h.run(concurrent, horizon)
+        trace = on_cpu.obs.export_jsonl()
+        if on_card.obs.export_jsonl() != trace:
+            raise AssertionError(f"audited {name} q7 concurrent: the card's trace differs from "
+                                 "the CPU's")
+        want, rep = (check_audit(f"audited {name} q7 concurrent on the {w}", h)
+                     for w, h in (("CPU", on_cpu), ("card", on_card)))
+        if (rep.violations, rep.metrics) != (want.violations, want.metrics):
+            raise AssertionError(f"audited {name}: the card's audit differs from the CPU's")
+        crit = analyze_harness(on_card)
+        if crit.to_json() != analyze_harness(on_cpu).to_json():
+            raise AssertionError(f"audited {name}: the card's critical paths differ from the CPU's")
+        log(f"audited {name} q7 concurrent at {RUNTIME_PARITY_BATCHES} batches, monitor on: card "
+            f"and CPU traces byte-identical ({len(trace)} bytes, {on_card.obs.buf.total} "
+            f"records); audit ok on both ({json.dumps(rep.metrics)}); live monitor = replay, "
+            f"no violation, warnings {sorted(on_card.monitor.warning_ids())}; critical-path "
+            f"reports equal ({len(crit.paths)} paths)")
+
+
+class FeedClock:
+    """Host seconds of a harness's online monitor: takes the monitor's place
+    among the telemetry's subscribers and times each record it feeds it."""
+
+    def __init__(self, harness):
+        self.feed, self.seconds = harness.monitor.feed, 0.0
+        harness.obs.unsubscribe(self.feed)
+        harness.obs.subscribe(self)
+
+    def __call__(self, ev) -> None:
+        t0 = time.perf_counter()
+        self.feed(ev)
+        self.seconds += time.perf_counter() - t0
+
+
+def audited_full_depth(dev, run, cfg, q7, concurrent, card: str, untraced: dict) -> None:
+    """The concurrent failure at full depth (Holon and Flink), timed as the
+    untraced runs are (``untraced``: each one's row and the latency baseline
+    of its recovery figure): traced with the monitor on at the default ring,
+    which holds the whole trace; traced and monitored again with the trace
+    spilled to a spool beyond a ring of ``RUNTIME_SPILL_CAP``; then untraced
+    once more.  Both traced runs must audit ``ok`` with nothing dropped and
+    give the same report.  Prints the wall seconds of the three runs beside
+    the first untraced run's (the host cost of tracing and monitoring, and
+    of tracing, monitoring and spilling), the monitor's own host seconds,
+    the auditor's recovery figures beside the script's own, the critical
+    path's phase split, and the host seconds of the analysis over the
+    spilled trace."""
+    from repro_torch.obs import analyze, audit, replay
+    from repro_torch.runtime import FlinkHarness, HolonHarness
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cls, used in (("holon", HolonHarness, {"topk_window"}),
+                                ("flink", FlinkHarness, set())):
+            plain, base_avg = untraced[name]
+            ring = dataclasses.replace(cfg, obs=True, obs_monitor=True)
+            h0 = cls(ring, q7, device=dev)
+            feed0 = FeedClock(h0)
+            _, row0 = run(f"{name} q7 concurrent, traced and monitored", h0, concurrent, used,
+                          base_avg)
+            if h0.obs.buf.spilled or h0.obs.buf.dropped:
+                raise AssertionError(f"traced {name} at the default ring: "
+                                     f"{h0.obs.buf.spilled} records spilled, "
+                                     f"{h0.obs.buf.dropped} dropped")
+            rep0 = check_audit(f"traced {name} q7 concurrent", h0)
+            traced = dataclasses.replace(ring, obs_trace_cap=RUNTIME_SPILL_CAP,
+                                         obs_spill_path=os.path.join(tmp, f"{name}.jsonl"))
+            h = cls(traced, q7, device=dev)
+            feed = FeedClock(h)
+            _, row = run(f"{name} q7 concurrent, traced, monitored and spilled", h, concurrent,
+                         used, base_avg)
+            _, again = run(f"{name} q7 concurrent, untraced again", cls(cfg, q7, device=dev),
+                           concurrent, used, base_avg)
+            buf = h.obs.buf
+            if buf.dropped or not buf.spilled:
+                raise AssertionError(f"traced {name}: {buf.spilled} records spilled, "
+                                     f"{buf.dropped} dropped")
+            rep = check_audit(f"traced and spilled {name} q7 concurrent", h)
+            if (rep.violations, rep.metrics) != (rep0.violations, rep0.metrics):
+                raise AssertionError(f"traced {name}: the spilled run's audit differs from the "
+                                     "unspilled run's")
+            t0 = time.perf_counter()
+            events = buf.all_events()
+            t_read = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            audit(events, cfg=traced)
+            t_audit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            crit = analyze(events, cfg=traced)
+            t_crit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            replay(events, traced)
+            t_replay = time.perf_counter() - t0
+            s = crit.summary()
+            log(json.dumps({
+                "traced": f"{name} q7 concurrent", "batches": traced.num_batches,
+                "records": buf.total, "spilled": buf.spilled, "dropped": buf.dropped,
+                "untraced_wall_s": [plain["wall_s"], again["wall_s"]],
+                "traced_monitored_wall_s": row0["wall_s"],
+                "traced_monitored_spilled_wall_s": row["wall_s"],
+                "monitor_host_s": [feed0.seconds, feed.seconds],
+                "monitor_us_per_record": feed0.seconds / h0.obs.buf.total * 1e6,
+                "audit_ok": rep.ok,
+                "sim_time_to_recover_ms": rep.metrics.get("time_to_recover_ms"),
+                "sim_time_to_settle_ms": rep.metrics.get("time_to_settle_ms"),
+                "sim_flink_downtime_ms": rep.metrics.get("flink_downtime_ms"),
+                "sim_recovery_ms": row["sim_recovery_ms"],
+                "untraced_sim_recovery_ms": plain["sim_recovery_ms"],
+                "windows_accepted": rep.metrics["windows_accepted"],
+                "windows_duplicate": rep.metrics["windows_duplicate"],
+                "critpath_paths": s["n"], "critpath_sim_phase_ms": s.get("phase_ms"),
+                "critpath_phase_frac": s.get("phase_frac"),
+                "host_s": {"read_spool": t_read, "audit": t_audit, "analyze": t_crit,
+                           "replay": t_replay},
+                "card": card}))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the examples and the training-metrics lattice on the card
+# ---------------------------------------------------------------------------
+
+
+def run_example(name: str, where: str) -> tuple[list, float]:
+    """One ``examples/torch/*.py`` through its ``main(argv)`` on ``where``,
+    in this process: its printed lines and its wall seconds."""
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    sync(where)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        mod.main(["--device", where])
+    sync(where)
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def run_examples(dev, card: str) -> dict:
+    """Each ``examples/torch/*.py`` at its defaults on the card, then on the
+    CPU.  Each asserts its own oracle where it has one; every line the card
+    run prints (sim-time and oracle values) must equal the CPU run's.  The
+    card runs record the first kernel call of each signature, and each is
+    held against its plain version once the phase's launches are counted.
+    Returns those launches, which must include every kernel the examples'
+    paths run."""
+    reset_launches()
+    recorded = {}
+    for name in EXAMPLES:
+        with recording_kernel_calls(distinct=True) as calls:
+            lines, wall = run_example(name, str(dev))
+        recorded[name] = calls
+        want, cpu_wall = run_example(name, "cpu")
+        for line in lines:
+            log(f"  {name} | {line}")
+        if lines != want:
+            raise AssertionError(f"example {name}: the card printed {lines}, the CPU {want}")
+        log(json.dumps({"example": name, "wall_s": wall, "card": card,
+                        "cpu_wall_s": cpu_wall, "lines_equal_cpu": len(lines)}))
+    counts = check_launches("examples", {"window_agg", "topk_window", "delta_merge_join"})
+    log(json.dumps({"examples_launches": counts}))
+    for name, calls in recorded.items():
+        checked = runtime_kernel_calls(calls, dev)
+        log(f"example {name}: each kernel signature its card run launched held against the "
+            f"plain version: {json.dumps({k: v['shapes'] for k, v in checked.items()})}")
+    return counts
+
+
+def metric_lattice(spec, inputs, where) -> tuple[dict, dict]:
+    """The training-metrics lattice on ``where``: every worker folds its
+    steps into its own replica, one call a step; the stacked state folds
+    every worker's step in one call; the replicas merge in worker order and
+    in reverse; the stacked state joins over a ``StackMesh``.  Returns the
+    states by name and the wall seconds of the two folds."""
+    from repro_torch.launch.mesh import StackMesh
+    from repro_torch.training import (
+        metrics_axis_join, metrics_fold, metrics_init, metrics_merge,
+    )
+
+    S, T = spec.num_workers, inputs[0].shape[0]
+    x = [torch.from_numpy(a).to(where) for a in inputs]
+    secs = {}
+    t0 = time.perf_counter()
+    replicas = []
+    for w in range(S):
+        st = metrics_init(spec, where)
+        for t in range(T):
+            st = metrics_fold(spec, st, w, t, *(a[t, w] for a in x))
+        replicas.append(st)
+    sync(where)
+    secs["one_worker_at_a_time_s"] = time.perf_counter() - t0
+    workers = torch.arange(S, device=where)
+    t0 = time.perf_counter()
+    stacked = metrics_init(spec, where, replicas=S)
+    for t in range(T):
+        stacked = metrics_fold(spec, stacked, workers, t, *(a[t] for a in x))
+    sync(where)
+    secs["stacked_s"] = time.perf_counter() - t0
+    states = {"stacked": stacked,
+              "merged": functools.reduce(lambda a, b: metrics_merge(spec, a, b), replicas),
+              "merged_reversed": functools.reduce(lambda a, b: metrics_merge(spec, a, b),
+                                                  replicas[::-1]),
+              "joined": metrics_axis_join(spec, stacked, StackMesh(S, torch.device(where)))}
+    states.update({f"worker {w}": st for w, st in enumerate(replicas)})
+    return states, secs
+
+
+def sync(where) -> None:
+    if torch.device(where).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def metric_row(state: dict, row: int) -> dict:
+    """Row ``row`` of a stacked metric state, as a state of one replica."""
+    from repro_torch.core.lattice import map_tensors
+
+    return {k: map_tensors(lambda x: x[row:row + 1], st) for k, st in state.items()}
+
+
+def same_metrics(a: dict, b: dict, what: str) -> None:
+    for k in a:
+        same_state(a[k], b[k], f"metrics {what}: {k}")
+
+
+def run_metrics(dev, card: str) -> tuple[dict, list]:
+    """The training-metrics lattice (``MetricSpec(16 workers, 10-step
+    windows, 8 slots)``, 200 steps a worker) on the card and on the CPU:
+    every state bitwise the CPU's, both merge orders and the axis join equal
+    to each other, every complete window's read within ``METRIC_READ_RTOL``
+    of the CPU's.  Returns the launches of the card's run, and the fold
+    kernel's rows at the shapes the lattice gives it (one lane a replica,
+    ``L = 1``, ``C = 1``; init from a non-empty state), each held against
+    its plain version and timed."""
+    from repro_torch.training import MetricSpec, metrics_fold, metrics_read
+
+    spec = MetricSpec(num_workers=METRIC_WORKERS, window_len=METRIC_WINDOW,
+                      num_slots=METRIC_SLOTS)
+    S, T = METRIC_WORKERS, METRIC_STEPS
+    rng = np.random.default_rng(SEED)
+    inputs = ((rng.random((T, S)) * 4 + 0.5).astype(np.float32),
+              rng.integers(1_000, 8_192, (T, S)).astype(np.float32),
+              (rng.standard_normal((T, S)) ** 2).astype(np.float32))
+    reset_launches()
+    card_states, card_s = metric_lattice(spec, inputs, dev)
+    counts = check_launches("metrics", {"window_agg"})
+    cpu_states, cpu_s = metric_lattice(spec, inputs, "cpu")
+    for k, st in cpu_states.items():
+        same_metrics(card_states[k], st, f"{k} (card against the CPU)")
+    same_metrics(card_states["merged"], card_states["merged_reversed"], "merge orders")
+    for w in range(S):
+        same_metrics(metric_row(card_states["stacked"], w), card_states[f"worker {w}"],
+                     f"stacked row {w} against worker {w}")
+        same_metrics(metric_row(card_states["joined"], w), card_states["merged"],
+                     f"joined row {w} against the merges")
+    # the ring holds the last METRIC_SLOTS complete windows; the one before
+    # them is evicted and the one after them has no step yet
+    complete = T // METRIC_WINDOW
+    readable = range(complete - METRIC_SLOTS, complete)
+    for wid in range(readable.start - 1, readable.stop + 1):
+        for name in ("joined", "merged"):
+            (got, ok), (want, want_ok) = (metrics_read(spec, card_states[name], wid),
+                                          metrics_read(spec, cpu_states[name], wid))
+            if not torch.equal(ok.cpu(), want_ok) or bool(want_ok.all()) != (wid in readable):
+                raise AssertionError(f"metrics read {name} window {wid}: ok {ok.tolist()}, "
+                                     f"CPU {want_ok.tolist()}")
+            for k in want if wid in readable else ():
+                assert_close(f"metrics read {name} window {wid} {k}", got[k].cpu(), want[k],
+                             METRIC_READ_RTOL)
+
+    # the fold kernel at the lattice's shapes: one more step of a worker's
+    # replica and of the stacked state, recorded, each shape timed
+    workers = torch.arange(S, device=dev)
+    step = [torch.from_numpy(a[-1]).to(dev) for a in inputs]
+    with recording_kernel_calls() as calls:
+        metrics_fold(spec, card_states["worker 0"], 0, T, *(a[0] for a in step))
+        metrics_fold(spec, card_states["stacked"], workers, T, *step)
+    rows, seen = [], set()
+    for args, kw in calls["window_agg"]:
+        vals, _, _, W_ = args
+        sig = (vals.shape, kw["op"])
+        if sig in seen:
+            continue
+        seen.add(sig)
+        name = (f"window_agg metrics lattice op={kw['op']} S={vals.shape[0]} L={vals.shape[1]} "
+                f"W={W_} C={kw.get('C', 1)}")
+        rows.append(dict(window_agg_row(dev, name, args, kw, timed=True), card=card))
+        log(json.dumps(rows[-1]))
+    log(json.dumps({"metrics": f"{S} workers x {T} steps, window {METRIC_WINDOW}, "
+                               f"{METRIC_SLOTS} slots",
+                    "readable_windows": len(readable), "launches": counts,
+                    "card_wall_s": card_s, "cpu_wall_s": cpu_s, "card": card}))
+    log("metrics: every state bitwise the CPU's; merges in both orders, the axis join and "
+        f"the stacked rows equal; reads of the {len(readable)} windows the ring holds within "
+        f"rtol {METRIC_READ_RTOL}")
+    return counts, rows
 
 
 def same_state(a, b, what: str) -> None:
@@ -1641,7 +2036,20 @@ def main() -> int:
         launches[k] += c
     log(f"runtime done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== phase 6: throughput {card}")
+    log(f"== phase 6: the examples and the training-metrics lattice {card}")
+    for k, c in run_examples(dev, card).items():
+        launches[k] += c
+    log(f"examples done at {time.perf_counter() - t_start:.1f} s")
+    counts, metric_rows = run_metrics(dev, card)
+    for k, c in counts.items():
+        launches[k] += c
+    kernel_rows["window_agg"]["metrics_lattice"] = [
+        {k_: r[k_] for k_ in ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "host_us",
+                              "launch_us", "chain_floor_ms")} for r in metric_rows]
+    kernel_rows["window_agg"]["metrics_lattice_launches"] = counts["window_agg"]
+    log(f"metrics done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 7: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
@@ -1665,7 +2073,8 @@ def main() -> int:
             **{k_: row[k_] for k_ in ("ms_batches", "chain_floor_ms", "sort_ms", "wrapper_ms",
                                       "parent_ms", "parent_host_us", "launch_floor_ms",
                                       "device_kernels", "parent_device_kernels",
-                                      "standalone_gated_delta_merge")
+                                      "standalone_gated_delta_merge", "metrics_lattice",
+                                      "metrics_lattice_launches")
                if k_ in row},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
 """Carry state between numpy and the port's types.
 
 The JAX package's arrays reach these functions as numpy (``np.asarray``),
-so both packages can fold the same log from the same state.  Auction,
+so both packages can fold the same log from the same state; its exported
+JSONL traces reach the port's trace analysis as text.  Auction,
 bidder and TopK ids are u32 values that the port carries as int64; they go
 back to uint32 on the way out.
 """
@@ -13,8 +14,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.wcrdt import WSpec, WState
+from repro_torch.obs.records import from_jsonl
 from repro_torch.runtime.storage import PartitionCheckpoint
 from repro_torch.streaming.events import EventBatch
+from repro_torch.training.metrics import MetricSpec
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -89,3 +92,15 @@ def checkpoint_from_numpy(ckpt, shared_specs, local_spec: WSpec | None,
         baseline=baseline,
         epoch=int(ckpt.epoch),
     )
+
+
+def metric_state_from_numpy(spec: MetricSpec, arrays: dict, device="cpu") -> dict:
+    """A training-metrics state (``{name: WState}``) from ``{name: numpy
+    dict}`` with :func:`wstate_from_numpy`'s keys, one per metric of
+    ``spec``; an unstacked JAX state gains the replica axis of 1."""
+    return {k: wstate_from_numpy(s, arrays[k], device) for k, s in spec.specs().items()}
+
+
+# a JSONL trace the JAX runtime exported (``Telemetry.export_jsonl``) as the
+# port's TraceEvents: the two packages share the line format
+trace_from_jsonl = from_jsonl

@@ -45,6 +45,7 @@ import math
 
 import numpy as np
 
+from repro_torch.obs.monitor import OnlineMonitor
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.runtime.config import FailureScenario, Scenario, SimConfig, as_scenario
 from repro_torch.runtime.consumer import Consumer
@@ -108,9 +109,8 @@ class FlinkHarness:
         # harness, so both runtimes alert through one code path
         self.monitor = None
         if cfg.obs_monitor:
-            raise NotImplementedError(
-                "obs_monitor needs obs/monitor.py, not yet ported (ROADMAP.md "
-                "Queue 1, item 4: observability analysis)")
+            self.monitor = OnlineMonitor.from_config(cfg)
+            self.monitor.attach(self.obs)
 
     # ---- per-partition processing loop -------------------------------------
     def _loop_part(self, pid: int):

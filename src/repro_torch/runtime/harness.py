@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import wcrdt as W
+from repro_torch.obs.monitor import OnlineMonitor
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.runtime.config import FailureScenario, Scenario, SimConfig, as_scenario
 from repro_torch.runtime.consumer import Consumer
@@ -872,9 +873,8 @@ class HolonHarness:
         # byte-identical with it on or off (docs/observability.md §6)
         self.monitor = None
         if cfg.obs_monitor:
-            raise NotImplementedError(
-                "obs_monitor needs obs/monitor.py, not yet ported (ROADMAP.md "
-                "Queue 1, item 4: observability analysis)")
+            self.monitor = OnlineMonitor.from_config(cfg)
+            self.monitor.attach(self.obs)
 
     # ---- the dataplane of one node (S=1 stacks on self.device) ---------------
     def init_shared(self) -> tuple:

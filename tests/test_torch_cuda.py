@@ -616,3 +616,54 @@ def test_runtime_on_card_matches_cpu(dev, qname):
         launched = {n for n, k in ops.KERNELS.items() if k.launches > before[n]}
     assert traces[0] == traces[1]
     assert launched == ({"topk_window"} if qname == "q7" else {"window_agg", "delta_merge_join"})
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("S", [1, 16])
+def test_window_agg_one_lane_a_replica(dev, op, S):
+    """The training-metrics fold's shape: one lane a replica (``L = 1``,
+    ``C = 1``) folded into a non-empty state, against the plain version on
+    the card and on the CPU, bitwise (one addend a cell: no order)."""
+    rng = np.random.default_rng(S * 7 + len(op))
+    W = 8
+    vals = torch.from_numpy((rng.random((S, 1)) * 4 + 1).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(0, W, (S, 1)).astype(np.int32))
+    mask = torch.ones((S, 1), dtype=torch.bool)
+    if S > 1:
+        mask[S // 2] = False  # one replica's lane masked
+    # a non-empty state below every lane, so that max changes it too
+    init = torch.from_numpy(rng.random((S, W, 1)).astype(np.float32))
+    args = [t.to(dev) for t in (vals, slots, mask)]
+    got = window_agg.window_agg(*args, W, op=op, init=init.to(dev))
+    want = ref.window_agg_ref(*args, W, op=op, init=init.to(dev))
+    cpu = ref.window_agg_ref(vals, slots, mask, W, op=op, init=init)
+    np.testing.assert_array_equal(got.cpu(), want.cpu())
+    np.testing.assert_array_equal(got.cpu(), cpu)
+    assert not torch.equal(cpu, init)
+
+
+def test_metrics_fold_on_card_matches_cpu(dev):
+    """The training-metrics lattice folded on the card, one worker at a time
+    and stacked, equals the CPU's bitwise, one launch a counter a fold."""
+    from repro_torch.convert import wstate_to_numpy
+    from repro_torch.training import MetricSpec, metrics_fold, metrics_init
+
+    spec = MetricSpec(num_workers=4, window_len=5, num_slots=8)
+    rng = np.random.default_rng(5)
+    x = [torch.from_numpy(a.astype(np.float32)) for a in
+         (rng.random((23, 4)) * 3, rng.integers(1, 900, (23, 4)), rng.random((23, 4)))]
+    states = []
+    for d in ("cpu", dev):
+        before = ops.KERNELS["window_agg"].launches
+        one = metrics_init(spec, d)
+        stacked = metrics_init(spec, d, replicas=4)
+        xd = [a.to(d) for a in x]
+        for t in range(23):
+            one = metrics_fold(spec, one, t % 4, t, *(a[t, t % 4] for a in xd))
+            stacked = metrics_fold(spec, stacked, torch.arange(4, device=d), t, *(a[t] for a in xd))
+        if d == dev:
+            assert ops.KERNELS["window_agg"].launches - before == 2 * 23 * 3
+        states.append({f"{n}.{k}.{f}": a for n, st in (("one", one), ("stacked", stacked))
+                       for k, s in st.items() for f, a in wstate_to_numpy(s).items()})
+    for k, a in states[0].items():
+        np.testing.assert_array_equal(states[1][k], a, err_msg=k)

@@ -1,12 +1,13 @@
 """The port's observability base: records, registry, telemetry, timers.
 
-Mirrors the cases of ``tests/test_obs.py`` that need no ``obs/audit.py``
-(the auditor is not yet ported): the trace ring and its dropped count, the
-registry, both exporters' formats, the two clock domains, telemetry off
-recording nothing, and same-seed runs of both runtimes exporting
-byte-identical traces with telemetry changing nothing in the run.  The
-port's exporters give the JAX package's bytes for the same records, and
-the online monitor, not yet ported, raises instead of being ignored.
+Mirrors the cases of ``tests/test_obs.py`` outside the auditor's (which
+``tests/test_torch_obs_analysis.py`` mirrors): the trace ring and its
+dropped count, the registry, both exporters' formats, the two clock
+domains, telemetry off recording nothing, and same-seed runs of both
+runtimes exporting byte-identical traces with telemetry changing nothing in
+the run.  The port's exporters give the JAX package's bytes for the same
+records, and ``SimConfig.obs_monitor`` attaches the online monitor to
+either runtime without changing its trace.
 
 Also here: nothing under ``src/repro_torch`` imports JAX or the JAX
 package, checked in a fresh interpreter that imports every module of the
@@ -29,6 +30,7 @@ import torch
 from repro.obs import records as jrec
 from repro.obs import registry as jreg
 import repro_torch.runtime as R
+from repro_torch.obs.monitor import OnlineMonitor
 from repro_torch.obs.records import TraceBuffer, TraceEvent, mkargs, to_chrome, to_jsonl
 from repro_torch.obs.registry import MetricsRegistry, summary
 from repro_torch.obs.telemetry import Telemetry
@@ -212,8 +214,8 @@ def test_net_trace_equality_still_holds():
 @pytest.mark.parametrize("harness", sorted(HARNESSES))
 def test_trace_records_every_scenario_family(harness):
     """Each of ``tests/test_obs.py``'s scenario families runs and records
-    the lifecycle records its auditor reads (the auditor itself waits on
-    ``obs/audit.py``)."""
+    the lifecycle records its auditor reads (the auditor's verdicts are
+    held in ``tests/test_torch_obs_analysis.py``)."""
     scen = {"holon": Scenario("el").scale_out(2000.0, 3).scale_in(4000.0, 3),
             "flink": FailureScenario.concurrent(t=2000.0)}[harness]
     kinds = {e.kind for e in _run(scenario=scen, harness=harness).obs.events()}
@@ -223,9 +225,15 @@ def test_trace_records_every_scenario_family(harness):
 
 
 @pytest.mark.parametrize("harness", sorted(HARNESSES))
-def test_online_monitor_raises_until_ported(harness):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        _run(dataclasses.replace(CFG, obs_monitor=True), harness=harness)
+def test_online_monitor_attached(harness):
+    """``obs_monitor=True`` turns recording on and attaches an
+    ``OnlineMonitor`` that sees every record, and the trace is the bytes of
+    the run with the monitor off."""
+    h_on = _run(dataclasses.replace(CFG, obs=False, obs_monitor=True), harness=harness)
+    h_off = _run(CFG, harness=harness)
+    assert h_on.obs.on and isinstance(h_on.monitor, OnlineMonitor) and h_off.monitor is None
+    assert h_on.monitor.fed == h_on.obs.buf.total > 0
+    assert h_on.obs.export_jsonl() == h_off.obs.export_jsonl()
 
 
 # ---------------------------------------------------------------------------
