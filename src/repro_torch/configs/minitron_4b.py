@@ -1,0 +1,14 @@
+"""Minitron-4B: width-pruned Nemotron [arXiv:2407.14679; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=9216,
+    vocab=256_000,
+    head_dim=128,
+)

@@ -17,7 +17,9 @@ from repro_torch.core.wcrdt import WSpec, WState
 from repro_torch.obs.records import from_jsonl
 from repro_torch.runtime.storage import PartitionCheckpoint
 from repro_torch.streaming.events import EventBatch
+from repro_torch.training.checkpoint import TrainCheckpoint
 from repro_torch.training.metrics import MetricSpec
+from repro_torch.training.optimizer import AdamWState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -99,6 +101,38 @@ def metric_state_from_numpy(spec: MetricSpec, arrays: dict, device="cpu") -> dic
     dict}`` with :func:`wstate_from_numpy`'s keys, one per metric of
     ``spec``; an unstacked JAX state gains the replica axis of 1."""
     return {k: wstate_from_numpy(s, arrays[k], device) for k, s in spec.specs().items()}
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A parameter tree (nested dicts of numpy arrays, the JAX package's
+    ``init_params`` layout) as the port's tensors, leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def adamw_from_numpy(opt: dict, device="cpu") -> AdamWState:
+    """An AdamW state given as ``{"step", "mu", "nu"}`` numpy trees (the
+    fields of the JAX package's ``AdamWState``) as the port's."""
+    return AdamWState(step=_tensor(np.asarray(opt["step"], np.int32), device),
+                      mu=params_from_numpy(opt["mu"], device),
+                      nu=params_from_numpy(opt["nu"], device))
+
+
+def train_state_from_numpy(ckpt: TrainCheckpoint, spec: MetricSpec, device="cpu"):
+    """``(params, opt, metrics)`` of a training checkpoint whose trees are
+    numpy, dataclasses as dicts of their fields: a blob of the port's
+    ``LocalStore``, or of the JAX package's once its ``AdamWState`` and
+    ``WState``s are turned into dicts (the JAX classes unpickle only beside
+    the JAX package).  A metric state is ``{name: WState fields}``, its
+    ``windows`` the CRDT's fields."""
+    metrics = {
+        name: {**{k: v for k, v in st.items() if k != "windows"},
+               **{f"windows.{f}": a for f, a in st["windows"].items()}}
+        for name, st in ckpt.metrics.items()
+    }
+    return (params_from_numpy(ckpt.params, device), adamw_from_numpy(ckpt.opt, device),
+            metric_state_from_numpy(spec, metrics, device))
 
 
 # a JSONL trace the JAX runtime exported (``Telemetry.export_jsonl``) as the

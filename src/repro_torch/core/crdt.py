@@ -4,7 +4,8 @@ Every class is a join-semilattice stored with a ring-slot axis ``[W]``
 behind the replica axis ``[S]``: replica ``s`` folds its own batch of lanes
 ``[s, :]`` into its own state ``[s, ...]``.  The folds of GCounter,
 PNCounter, MaxReg and MinReg run the windowed-fold kernel and TopK's runs
-the per-window top-k kernel (``kernels/ops.py``); ``merge`` is the join
+the per-window top-k kernel; the counters' reads fold their actor rows by
+the actor-sum kernel (``kernels/ops.py``); ``merge`` is the join
 declared per field in ``KINDS`` (TopK's is custom).
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import ClassVar
 import torch
 
 from repro_torch.core.lattice import (
-    Reduce, float_to_ordered_u32, lex_join, ordered_u32_to_float,
+    Reduce, as_dtype, float_to_ordered_u32, lex_join, ordered_u32_to_float,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import lex_topk
@@ -27,12 +28,14 @@ NEG_INF = float("-inf")
 def _per_replica(x, S: int, device) -> torch.Tensor:
     """A per-replica index: an int for every replica, or an ``[S]`` tensor."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64).expand(S)
+        if x.device != torch.device(device):
+            x = x.to(device)
+        return as_dtype(x, torch.int64).expand(S)
     return torch.full((S,), int(x), dtype=torch.int64, device=device)
 
 
 def _i32(x: torch.Tensor | None) -> torch.Tensor | None:
-    return None if x is None else x.to(torch.int32).contiguous()
+    return None if x is None else as_dtype(x, torch.int32).contiguous()
 
 
 def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
@@ -42,7 +45,7 @@ def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
     S, W, P = rows_state.shape[:3]
     key_shape = rows_state.shape[3:]
     C = math.prod(key_shape)
-    args = (amounts.to(torch.float32).contiguous(), _i32(slot_ids), mask.contiguous(), W)
+    args = (as_dtype(amounts, torch.float32).contiguous(), _i32(slot_ids), mask.contiguous(), W)
     if P == 1:  # one actor row (the keyed and local counters): fold it whole
         out = ops.window_agg(*args, op=op, keys=_i32(keys), C=C,
                              init=rows_state.reshape(S, W, C).contiguous())
@@ -54,26 +57,6 @@ def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
     new = rows_state.clone()
     new[rows, :, actor] = out.reshape(S, W, *key_shape)
     return new
-
-
-def _actor_sum(rows: torch.Tensor) -> torch.Tensor:
-    """Sum ``[S, P, ...]`` actor rows over ``P`` by a fixed pairwise tree:
-    pad ``P`` with zero rows to a power of two, then add neighbours, ``(0,
-    1), (2, 3), ...``, level by level.  Each level sums a dimension of size 2,
-    whose result does not depend on the order in which torch adds, so the
-    card and the host read the same bits (a torch sum over ``P`` adds in an
-    order of its own, another on the card than on the host).  For ``P <= 3``
-    the tree is the left fold of the JAX package's ``jnp.sum(axis=0)`` on
-    XLA's CPU, so reads are bitwise; above, they differ from it by the
-    rounding of at most ``log2(P)`` additions a lane."""
-    S, P, *key = rows.shape
-    levels = (P - 1).bit_length()
-    if P < 2**levels:
-        rows = torch.nn.functional.pad(rows, (0, 0) * len(key) + (0, 2**levels - P))
-    x = rows.reshape(S, *(2,) * levels, *key)
-    for d in range(levels, 0, -1):
-        x = x.sum(d)
-    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +75,7 @@ class GCounter:
         return GCounter(_actor_fold(self.slots, slot_ids, mask, actor, amounts, keys))
 
     def window_value(self, slot: int) -> torch.Tensor:
-        return _actor_sum(self.slots[:, slot])
+        return ops.actor_sum(self.slots[:, slot])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +99,7 @@ class PNCounter:
         )
 
     def window_value(self, slot: int) -> torch.Tensor:
-        return _actor_sum(self.pos[:, slot]) - _actor_sum(self.neg[:, slot])
+        return ops.actor_sum(self.pos[:, slot]) - ops.actor_sum(self.neg[:, slot])
 
 
 def _reg_fold(v, slot_ids, mask, vals, keys, op):

@@ -26,6 +26,13 @@ class Reduce(enum.Enum):
     OR = "or"  # boolean / bitmask join
 
 
+def as_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``: ``x`` itself when it is already, with no torch op
+    (a ``.to`` that changes nothing is still one dispatched op of host
+    time on the hot path)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def join_leaf(kind: Reduce, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if kind is Reduce.MAX:
         return torch.maximum(a, b)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import crdt as crdts
 from repro_torch.core.crdt import _per_replica
 from repro_torch.core.lattice import (
-    Reduce, axis_reduce_leaf, field_kinds, join, join_many, join_stacked, map_fields,
+    Reduce, as_dtype, axis_reduce_leaf, field_kinds, join, join_many, join_stacked, map_fields,
 )
 from repro_torch.core.window import Tumbling, WindowAssigner, expand_events
 from repro_torch.kernels import ops
@@ -176,7 +176,7 @@ def insert(
     W = spec.num_slots
     dev = ts.device
     part = _lane_index(partition, S, dev)
-    ts = ts.to(torch.int32)
+    ts = as_dtype(ts, torch.int32)
     if batch_idx is not None:
         bidx = _lane_index(batch_idx, S, dev).to(torch.int32)
         mask = mask & (bidx >= state.folded.gather(1, part))
@@ -238,7 +238,7 @@ def increment_watermark(spec: WSpec, state: WState, partition, ts) -> WState:
     rows = torch.arange(S, device=dev)
     part = _per_replica(partition, S, dev)
     new = state.progress.clone()
-    new[rows, part] = torch.maximum(new[rows, part], ts.to(torch.int32))
+    new[rows, part] = torch.maximum(new[rows, part], as_dtype(ts, torch.int32))
     return dataclasses.replace(state, progress=new)
 
 

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.lattice import as_dtype
+
 
 def _floordiv(x, d: int):
     if isinstance(x, torch.Tensor):
@@ -58,7 +60,7 @@ class Hopping:
     def window_of(self, ts):
         """The newest window containing ``ts`` (the only one when K=1)."""
         if isinstance(ts, torch.Tensor):
-            ts = ts.to(torch.int32)
+            ts = as_dtype(ts, torch.int32)
         return _floordiv(ts, self.hop)
 
     def contains(self, wid, ts):

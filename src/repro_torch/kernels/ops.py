@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import actor_sum as _actor
 from repro_torch.kernels import crdt_merge as _merge
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import segment_reduce as _seg
@@ -24,7 +25,8 @@ SPARSE_KEY_THRESHOLD = 1024
 # every launched kernel, for launch accounting
 KERNELS = {"window_agg": _agg.KERNEL, "topk_window": _topk.KERNEL,
            "gated_delta_merge": _merge.KERNEL, "segment_reduce": _seg.KERNEL,
-           "crdt_merge": _merge.MERGE_KERNEL, "delta_merge_join": _merge.JOIN_KERNEL}
+           "crdt_merge": _merge.MERGE_KERNEL, "delta_merge_join": _merge.JOIN_KERNEL,
+           "actor_sum": _actor.KERNEL}
 # the csrc/<name>.cu sources those kernels are built from
 SOURCES = sorted({k.source for k in KERNELS.values()})
 
@@ -55,6 +57,14 @@ def window_agg(
     if _on_cpu(vals):
         return _ref.window_agg_ref(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
     return _agg.window_agg(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
+
+
+def actor_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Left fold of f32 ``[S, P, *key]`` actor rows over ``P``: ``[S, *key]``."""
+    if _on_cpu(rows):
+        return _ref.actor_sum_ref(rows)
+    S, P, *key = rows.shape
+    return _actor.actor_sum(rows.reshape(S, P, -1)).reshape(S, *key)
 
 
 def segment_reduce(vals, segs, mask, n_seg: int, op: str = "sum", init=None) -> torch.Tensor:

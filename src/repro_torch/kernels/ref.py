@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lattice import Reduce, bitwise_or_reduce, join_leaf
+from repro_torch.core.lattice import Reduce, as_dtype, bitwise_or_reduce, join_leaf
 
 NEUTRAL = {"sum": 0.0, "count": 0.0, "max": float("-inf"), "min": float("inf")}
 
@@ -57,7 +57,7 @@ def window_agg_ref(
     hold ``init``, or the op's neutral element without it."""
     S, L = vals.shape
     n = W * C
-    v = vals.to(torch.float32)
+    v = as_dtype(vals, torch.float32)
     if op == "count":
         v = torch.ones_like(v)
     seg = slots.to(torch.int64) * C
@@ -79,10 +79,23 @@ def segment_reduce_ref(
     ``init`` untouched segments read the op's neutral element.  ``segs``
     under a False mask may be garbage: those lanes go to a sentinel
     segment."""
-    v = vals.to(torch.float32)
+    v = as_dtype(vals, torch.float32)
     if op == "count":
         v = torch.ones_like(v)
     return _fold((), n_seg, segs.to(torch.int64), v, mask, op, init)
+
+
+def actor_sum_ref(rows: torch.Tensor) -> torch.Tensor:
+    """Left fold of f32 ``[S, P, ...]`` actor rows over ``P``: ``((r0 + r1) +
+    r2) + ...``, ``P - 1`` elementwise adds in that order, as the JAX
+    package's ``jnp.sum(axis=0)`` adds on XLA's CPU (``csrc/actor_sum.cu``
+    says where a lane of -0.0 rows differs).  Elementwise adds round alike
+    on every device; a torch sum over ``P`` adds in an order of its own."""
+    r = rows.unbind(1)
+    out = r[0]
+    for x in r[1:]:
+        out = out + x
+    return out
 
 
 def crdt_merge_ref(stack: torch.Tensor, op: str = "max") -> torch.Tensor:

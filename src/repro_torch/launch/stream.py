@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import wcrdt as W
+from repro_torch.core.lattice import as_dtype
 from repro_torch.core.window import as_assigner
 from repro_torch.launch.mesh import StackMesh, make_data_mesh
 from repro_torch.obs.timing import WallTimer
@@ -90,7 +91,7 @@ def build_pipeline(
         for w in range(first_window, first_window + n_windows):
             v, ok = query.read(shared, local, w)
             oks.append(ok.to(torch.float32))
-            vals.append(v.to(torch.float32))
+            vals.append(as_dtype(v, torch.float32))
         return torch.stack(oks, 1), torch.stack(vals, 1), sync_bytes
 
     return run

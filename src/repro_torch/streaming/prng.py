@@ -15,8 +15,9 @@ from the LLVM IR that XLA's CPU backend emits, with the fused multiply-adds
 its code generator contracts (:func:`fma`), the correctly rounded square
 root and the flush of subnormal results to zero, so it gives XLA's bits on
 any device.  ``torch.erfinv``, ``torch.log1p``, ``torch.exp`` and torch's
-f32 ``sqrt`` on the CPU round differently in some lanes.  XLA's ``pow``
-(a libm call) is not always correctly rounded; :func:`pow_f32` is.
+f32 ``sqrt`` on the CPU round differently in some lanes.  XLA's CPU
+``pow`` is an external call to glibc's ``powf``, which :func:`pow_f32`
+ports to float64 torch ops.
 """
 from __future__ import annotations
 
@@ -62,20 +63,28 @@ def fold_in(key: Key, data) -> Key:
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
 
 
+def split_keys(key: Key, num: int) -> Key:
+    """The keys of ``jax.random.split(key, num)`` as one key batch of shape
+    ``key.shape + (num,)``, as ``jax.vmap`` over the split keys sees them:
+    key ``i`` is the hash of ``(0, i)``."""
+    k1, k2 = key
+    return threefry2x32(k1[..., None], k2[..., None], 0,
+                        torch.arange(num, dtype=torch.int64, device=k1.device))
+
+
 def split(key: Key, num: int) -> list[Key]:
     """``jax.random.split(key, num)``: key ``i`` is the hash of ``(0, i)``."""
-    k1, k2 = key
-    out1, out2 = threefry2x32(k1[..., None], k2[..., None], 0,
-                              torch.arange(num, dtype=torch.int64, device=k1.device))
+    out1, out2 = split_keys(key, num)
     return [(out1[..., i], out2[..., i]) for i in range(num)]
 
 
-def random_bits(key: Key, n: int) -> torch.Tensor:
+def random_bits(key: Key, n: int, offset: int = 0) -> torch.Tensor:
     """32-bit ``random_bits`` of shape ``key.shape + (n,)``: the hash of
-    counters ``(0, i)``, its two words xored (``n < 2**32``)."""
+    counters ``(0, i)``, its two words xored (``n < 2**32``).  With
+    ``offset`` the lanes ``offset .. offset + n - 1`` of a longer draw."""
     k1, k2 = key
     b1, b2 = threefry2x32(k1[..., None], k2[..., None], 0,
-                          torch.arange(n, dtype=torch.int64, device=k1.device))
+                          torch.arange(offset, offset + n, dtype=torch.int64, device=k1.device))
     return b1 ^ b2
 
 
@@ -84,12 +93,13 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def uniform(key: Key, n: int, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+def uniform(key: Key, n: int, minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32, minval, maxval)``: 23
     mantissa bits under the exponent of 1.0, less 1, scaled to the range
-    by one fused multiply-add."""
+    by one fused multiply-add (lanes from ``offset``, as ``random_bits``)."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (random_bits(key, n) >> 9) | 0x3F800000
+    bits = (random_bits(key, n, offset) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(fma(floats, float(hi - lo), float(lo)), float(lo))
 
@@ -196,11 +206,126 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def pow_f32(x: torch.Tensor, e: float) -> torch.Tensor:
-    """``x ** e`` in f32 (``e`` rounded to f32), computed in float64 and
-    rounded once.  XLA's ``pow`` is off by an ulp from this in some lanes
-    (594 of 2^20 at x^-10)."""
-    return (x.to(torch.float64) ** _f32(e)).to(torch.float32)
+# glibc's powf (sysdeps/ieee754/flt-32/e_powf.c, from ARM's optimized
+# routines).  log2(x) on 16 subintervals of [0x3f330000, 2 * 0x3f330000):
+# {1/c, log2(c)} per subinterval and the degree-5 polynomial of
+# log1p(r)/ln 2, read from the read-only data of glibc's libm.so.6
+# (__powf_log2_data, the 16-entry table followed by its polynomial).
+_POWF_INVC = tuple(float.fromhex(h) for h in (
+    "0x1.661ec79f8f3bep+0", "0x1.571ed4aaf883dp+0", "0x1.49539f0f010b0p+0",
+    "0x1.3c995b0b80385p+0", "0x1.30d190c8864a5p+0", "0x1.25e227b0b8ea0p+0",
+    "0x1.1bb4a4a1a343fp+0", "0x1.12358f08ae5bap+0", "0x1.0953f419900a7p+0",
+    "0x1.0p+0", "0x1.e608cfd9a47acp-1", "0x1.ca4b31f026aa0p-1",
+    "0x1.b2036576afce6p-1", "0x1.9c2d163a1aa2dp-1", "0x1.886e6037841edp-1",
+    "0x1.767dcf5534862p-1"))
+_POWF_LOGC = tuple(float.fromhex(h) for h in (
+    "-0x1.efec65b963019p-2", "-0x1.b0b6832d4fca4p-2", "-0x1.7418b0a1fb77bp-2",
+    "-0x1.39de91a6dcf7bp-2", "-0x1.01d9bf3f2b631p-2", "-0x1.97c1d1b3b7af0p-3",
+    "-0x1.2f9e393af3c9fp-3", "-0x1.960cbbf788d5cp-4", "-0x1.a6f9db6475fcep-5",
+    "0x0p+0", "0x1.338ca9f24f53dp-4", "0x1.476a9543891bap-3",
+    "0x1.e840b4ac4e4d2p-3", "0x1.40645f0c6651cp-2", "0x1.88e9c2c1b9ff8p-2",
+    "0x1.ce0a44eb17bccp-2"))
+_POWF_LOG2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+# exp2 on x = k/32 + r: 2^(k/32) from the table below times a cubic in r
+# (__exp2f_data: the polynomial and the shift 0x1.8p+52 / 32 from libm.so.6;
+# its table holds 2^(i/32) rounded to double, less i << 47, which is
+# written here as 2^(i/32) itself)
+_EXP2F_TAB = tuple(float.fromhex(h) for h in (
+    "0x1.0p+0", "0x1.059b0d3158574p+0", "0x1.0b5586cf9890fp+0", "0x1.11301d0125b51p+0",
+    "0x1.172b83c7d517bp+0", "0x1.1d4873168b9aap+0", "0x1.2387a6e756238p+0",
+    "0x1.29e9df51fdee1p+0", "0x1.306fe0a31b715p+0", "0x1.371a7373aa9cbp+0",
+    "0x1.3dea64c123422p+0", "0x1.44e086061892dp+0", "0x1.4bfdad5362a27p+0",
+    "0x1.5342b569d4f82p+0", "0x1.5ab07dd485429p+0", "0x1.6247eb03a5585p+0",
+    "0x1.6a09e667f3bcdp+0", "0x1.71f75e8ec5f74p+0", "0x1.7a11473eb0187p+0",
+    "0x1.82589994cce13p+0", "0x1.8ace5422aa0dbp+0", "0x1.93737b0cdc5e5p+0",
+    "0x1.9c49182a3f090p+0", "0x1.a5503b23e255dp+0", "0x1.ae89f995ad3adp+0",
+    "0x1.b7f76f2fb5e47p+0", "0x1.c199bdd85529cp+0", "0x1.cb720dcef9069p+0",
+    "0x1.d5818dcfba487p+0", "0x1.dfc97337b9b5fp+0", "0x1.ea4afa2a490dap+0",
+    "0x1.f50765b6e4540p+0"))
+_EXP2F_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")
+_POWF_OFF = 0x3F330000
+_SPLIT = 134217729.0  # 2^27 + 1, Dekker's splitter for float64
+
+
+def _fma64(a, b, c) -> torch.Tensor:
+    """float64 ``a * b + c`` rounded once, from plain float64 ops: Dekker's
+    exact product ``p + e`` of ``a`` and ``b``, Knuth's exact sum ``s + t``
+    of ``p`` and ``c``, then ``s + (t + e)``.  Each op is a torch op of its
+    own, so neither the host nor the card contracts it into another FMA."""
+    if not torch.is_tensor(a):
+        a, b = b, a
+    p = a * b
+    t = a * _SPLIT
+    ah = t - (t - a)
+    al = a - ah
+    if torch.is_tensor(b):
+        t = b * _SPLIT
+        bh = t - (t - b)
+    else:
+        bh = (b * _SPLIT) - ((b * _SPLIT) - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def pow_f32(x, e) -> torch.Tensor:
+    """f32 ``x ** e`` as XLA's CPU computes it: by glibc's ``powf``, under
+    XLA's flush-to-zero and denormals-are-zero modes (a subnormal result is
+    0, a subnormal ``x`` reads as zero where glibc rescales it).  ``x`` and
+    ``e`` are tensors or Python floats (rounded to f32), broadcast together.
+    ``log2(x)`` by the 16-entry table and a polynomial in float64, times
+    ``e``, then ``exp2`` by the 32-entry table and a cubic, rounded once to
+    f32.  The multiply-adds are those that glibc's x86-64 ``__powf_fma``
+    variant fuses, each rounded once (:func:`_fma64`).  Where the result is
+    a special value, the float64 power gives it exactly: at a zero,
+    infinite or NaN ``x`` or ``e``, and NaN at a negative ``x`` under a
+    fractional ``e``.  A negative ``x`` under an integer ``e`` takes the
+    main path on ``|x|`` and keeps its sign where ``e`` is odd, as glibc
+    does."""
+    dev = next((t.device for t in (x, e) if torch.is_tensor(t)), None)
+    x = torch.as_tensor(x, device=dev).to(torch.float32)
+    y = torch.as_tensor(e, device=dev).to(torch.float32).to(torch.float64)
+    ax = x.abs()
+    # glibc rescales a subnormal x by 2^23, which XLA's denormals-are-zero
+    # mode makes 0: its bits less 23 << 23
+    ix = torch.where(ax < _FLT_MIN, -(23 << 23), ax.view(torch.int32).to(torch.int64))
+    tmp = ix - _POWF_OFF
+    i = (tmp >> 19) & 15
+    k = tmp >> 23
+    z = (ix - (k << 23)).to(torch.int32).view(torch.float32).to(torch.float64)
+    f64 = dict(dtype=torch.float64, device=x.device)
+    invc = torch.tensor(_POWF_INVC, **f64)[i]
+    logc = torch.tensor(_POWF_LOGC, **f64)[i]
+    A = _POWF_LOG2_POLY
+    r = _fma64(z, invc, -1.0)
+    y0 = logc + k.to(torch.float64)
+    r2 = r * r
+    q = _fma64(A[4], r, y0)
+    q = _fma64(_fma64(A[2], r, A[3]), r2, q)
+    logx = _fma64(_fma64(A[0], r, A[1]), r2 * r2, q)
+    ylogx = y * logx
+    kd = (ylogx + _EXP2F_SHIFT) - _EXP2F_SHIFT  # k/32, rounded to nearest
+    rr = ylogx - kd
+    kk = (kd * 32.0).nan_to_num(0.0).clamp(-8192.0, 8192.0).to(torch.int64)
+    scale = (((kk >> 5) + 1023) << 52).view(torch.float64)  # 2^(k >> 5)
+    s = torch.tensor(_EXP2F_TAB, **f64)[kk & 31] * scale
+    C = _EXP2F_POLY
+    p = _fma64(_fma64(C[0], rr, C[1]), rr * rr, _fma64(C[2], rr, 1.0))
+    out = (p * s).to(torch.float32)
+    out = torch.where(ylogx > float.fromhex("0x1.fffffffd1d571p+6"), float("inf"), out)
+    out = torch.where((ylogx <= -150.0) | (out < _FLT_MIN), 0.0, out)  # and flush to zero
+    y_int = y == torch.floor(y)
+    odd = y_int & (torch.remainder(y, 2.0) == 1.0)  # an odd integer power keeps x's sign
+    out = torch.where(odd & (x < 0), -out, out)
+    special = ~torch.isfinite(x) | (x == 0) | ~torch.isfinite(y) | ((x < 0) & ~y_int)
+    return torch.where(special, (x.to(torch.float64) ** y).to(torch.float32), out)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -217,9 +342,11 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def normal(key: Key, n: int) -> torch.Tensor:
+def normal(key: Key, n: int, offset: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, (n,), float32)``: ``sqrt(2) *
-    erf_inv(uniform(lo=nextafter(-1, 0), hi=1))``."""
+    erf_inv(uniform(lo=nextafter(-1, 0), hi=1))`` (lanes from ``offset``,
+    as ``random_bits``).  A draw of shape ``(a, b, ...)`` is this draw of
+    ``a * b * ...`` lanes, reshaped."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, n, float(lo), 1.0)
+    u = uniform(key, n, float(lo), 1.0, offset)
     return _f32(np.sqrt(2)) * erf_inv(u)

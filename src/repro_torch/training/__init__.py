@@ -1,7 +1,6 @@
-"""Training-side use of the windowed CRDTs (port of ``repro.training``).
-
-Only the metrics lattice is ported so far; the optimizer, the train and
-serve steps and checkpointing come with the LM stack."""
+"""Training (port of ``repro.training``): AdamW, the train step,
+decentralized checkpoints and the WCRDT metrics lattice.  The serve and
+prefill steps come with the serving path."""
 from repro_torch.training.metrics import (
     MetricSpec,
     metrics_axis_join,
@@ -10,8 +9,14 @@ from repro_torch.training.metrics import (
     metrics_merge,
     metrics_read,
 )
+from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
+from repro_torch.training.train_step import make_train_step
 
 __all__ = [
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "make_train_step",
     "MetricSpec",
     "metrics_init",
     "metrics_fold",

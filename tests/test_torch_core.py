@@ -21,6 +21,7 @@ from repro.core.lattice import join_stacked as j_join_stacked
 from repro_torch.convert import wstate_from_numpy, wstate_to_numpy
 from repro_torch.core import crdt, wcrdt as W, window
 from repro_torch.core.lattice import join_stacked
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import StackMesh
 
 
@@ -87,6 +88,29 @@ def _batch(rng, S, B, W):
     mask = rng.random((S, B)) > 0.25
     vals = (rng.standard_normal((S, B)) * 5).astype(np.float32)
     return slots, mask, vals
+
+
+@pytest.mark.parametrize("P", range(1, 17))
+def test_actor_sum_is_jax_sum_over_actor_rows(P):
+    """``ops.actor_sum``'s plain version (the left fold of ``P - 1`` adds)
+    equals the JAX package's counter read ``jnp.sum(axis=0)`` bitwise, over
+    4,096 lanes of 2 replicas x 2,048 keys, for every ``P`` of 1 to 16; and
+    the GCounter / PNCounter reads of such rows equal the JAX ones."""
+    rng = np.random.default_rng(100 + P)
+    rows = (rng.standard_normal((2, P, 32, 64)) * np.exp(rng.uniform(-8, 8, (2, P, 32, 64))))
+    rows = rows.astype(np.float32)
+    got = ops.actor_sum(torch.from_numpy(rows)).numpy()
+    for s in range(2):
+        want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=0))(rows[s]))
+        np.testing.assert_array_equal(got[s].view(np.uint32), want.view(np.uint32))
+    pos, neg = np.abs(rows[0]), np.abs(rows[1])
+    g = crdt.GCounter(slots=torch.from_numpy(pos)[None, None])
+    np.testing.assert_array_equal(g.window_value(0)[0].numpy(),
+                                  np.asarray(jcrdt.GCounter(slots=jnp.asarray(pos)[None])
+                                             .window_value(0)))
+    pn = crdt.PNCounter(pos=torch.from_numpy(pos)[None, None], neg=torch.from_numpy(neg)[None, None])
+    jpn = jcrdt.PNCounter(pos=jnp.asarray(pos)[None], neg=jnp.asarray(neg)[None])
+    np.testing.assert_array_equal(pn.window_value(0)[0].numpy(), np.asarray(jpn.window_value(0)))
 
 
 @pytest.mark.parametrize("kind", ["gcounter", "gcounter_keyed", "pncounter", "maxreg",

@@ -240,6 +240,7 @@ def test_kernel_wrappers_count_launches(dev):
     wid = torch.zeros((S, W), dtype=torch.int32, device=dev)
     ops.delta_merge_join(wid, wid, [torch.zeros((S, W, 3), device=dev)],
                          [torch.zeros((S, W, 3), device=dev)], ["max"], [slots], [slots])
+    ops.actor_sum(torch.zeros((S, 3, 4), device=dev))
     for n, k in ops.KERNELS.items():
         assert k.launches == before[n] + 1, n
 
@@ -615,7 +616,8 @@ def test_runtime_on_card_matches_cpu(dev, qname):
         traces.append(h.obs.export_jsonl())
         launched = {n for n, k in ops.KERNELS.items() if k.launches > before[n]}
     assert traces[0] == traces[1]
-    assert launched == ({"topk_window"} if qname == "q7" else {"window_agg", "delta_merge_join"})
+    assert launched == ({"topk_window"} if qname == "q7"
+                        else {"window_agg", "delta_merge_join", "actor_sum"})
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -667,3 +669,130 @@ def test_metrics_fold_on_card_matches_cpu(dev):
                        for k, s in st.items() for f, a in wstate_to_numpy(s).items()})
     for k, a in states[0].items():
         np.testing.assert_array_equal(states[1][k], a, err_msg=k)
+
+
+@pytest.mark.parametrize("P", [1, 4, 16])
+@pytest.mark.parametrize("key", [(), (5,), (3, 7), (2049,)])
+def test_actor_sum_kernel_matches_plain(dev, P, key):
+    """The left fold over actor rows, bitwise against its plain version on
+    the card and on the CPU, for contiguous rows and for one ring slot of a
+    ``[S, W, P, *key]`` counter (rows strided over S and P)."""
+    rng = np.random.default_rng(P * 31 + len(key))
+    S, W = 3, 4
+    x = rng.standard_normal((S, W, P, *key)) * np.exp(rng.uniform(-6, 6, (S, W, P, *key)))
+    x = torch.from_numpy(x.astype(np.float32))
+    before = ops.KERNELS["actor_sum"].launches
+    for rows in (x[:, 1].contiguous(), x[:, 2]):
+        got = ops.actor_sum(rows.to(dev))
+        want = ref.actor_sum_ref(rows.to(dev))
+        torch.cuda.synchronize()
+        assert got.shape == (S, *key)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      want.cpu().numpy().view(np.uint32))
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      ref.actor_sum_ref(rows).numpy().view(np.uint32))
+    assert ops.KERNELS["actor_sum"].launches - before == 2
+
+
+def test_pow_f32_on_card_equals_cpu(dev):
+    """glibc's powf in torch ops gives the same bits on the card: random
+    f32 bit patterns at several powers, and the generator's zipf domain."""
+    from repro_torch.streaming import prng
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+                         .view(np.float32))
+    u = torch.from_numpy(rng.uniform(0, 1, 1 << 20).astype(np.float32))
+    for base, e in ((x, -10.0), (x, 0.7), (x, 3.0), (u * 0.5 + 1.0, -10.0),
+                    (u * np.float32((1e6 + 1) ** -0.1 - 1) + 1.0, 1.0 / (1.0 - 1.1))):
+        got = prng.pow_f32(base.to(dev), e).cpu()
+        want = prng.pow_f32(base, e)
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+        assert bool(same.all()), e
+    t = torch.arange(1, 200, dtype=torch.float32)
+    np.testing.assert_array_equal(prng.pow_f32(0.95, t.to(dev)).cpu().numpy(),
+                                  prng.pow_f32(0.95, t).numpy())
+
+
+def _train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("minitron_4b").reduced(), n_kv_heads=2, n_layers=2)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train step on the card against the CPU's, f32 with TF32 off:
+    the same parameters (drawn on each device, bitwise), loss and grad norm
+    to rtol 1e-5, moments to 1e-4 of each leaf's largest magnitude
+    (tests/test_torch_train.py's tolerances).  Updated parameters to 0.05
+    lr where the gradient is above 1e-3 of its leaf's largest: a first
+    AdamW step moves a lane by lr g / (|g| + eps), whose direction the two
+    devices' products decide alike only where g stands above their
+    rounding; elsewhere a lane steps by at most lr (1 + wd |p|) either way,
+    so the two differ by at most 2.2 lr there."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.streaming import prng
+    from repro_torch.training import adamw_init, make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, lr = _train_cfg(), 1e-3
+    out = {}
+    for d in ("cpu", dev):
+        p = init_params(cfg, prng.prng_key(0, d), dtype=torch.float32)
+        if d == "cpu":
+            p0 = p
+        else:
+            for a, b in zip(tree_leaves(p), tree_leaves(p0)):
+                assert torch.equal(a.cpu(), b)
+        step = make_train_step(cfg, q_chunk=32, lr=lr)
+        out[str(d)] = step(p, adamw_init(p), synthetic_batch(0, 0, 2, 64, cfg.vocab, d))
+    (pc, oc, sc), (pg, og, sg) = out["cpu"], out[str(dev)]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(sg[k]), float(sc[k]), rtol=1e-5, err_msg=k)
+    for kind, a_, b_ in (("mu", og.mu, oc.mu), ("nu", og.nu, oc.nu)):
+        for a, b in zip(tree_leaves(a_), tree_leaves(b_)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4 * float(b.abs().max()), err_msg=kind)
+    for a, b, m in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(oc.mu)):
+        a, sure = a.cpu(), m.abs() > 1e-3 * m.abs().max()
+        assert bool(sure.any())
+        np.testing.assert_allclose(a[sure].numpy(), b[sure].numpy(), rtol=0, atol=0.05 * lr)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2.2 * lr)
+
+
+def test_crash_and_restore_on_card_is_bitwise(dev, tmp_path):
+    """Six steps on the card uncrashed, and three, a checkpoint through the
+    LocalStore, a restore and three more: the same parameters and moments
+    bit for bit (every op of a step is deterministic on the card)."""
+    from repro_torch.convert import adamw_from_numpy, params_from_numpy
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.streaming import prng
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.checkpoint import LocalStore, TrainCheckpoint
+
+    cfg = _train_cfg()
+    step = make_train_step(cfg, q_chunk=32)
+    batch = lambda s: synthetic_batch(0, s, 2, 64, cfg.vocab, dev)
+    p0 = init_params(cfg, prng.prng_key(0, dev), dtype=torch.float32)
+    p1, o1 = p0, adamw_init(p0)
+    for s in range(6):
+        p1, o1, _ = step(p1, o1, batch(s))
+    p2, o2 = p0, adamw_init(p0)
+    for s in range(3):
+        p2, o2, _ = step(p2, o2, batch(s))
+    store = LocalStore(tmp_path)
+    store.put("w0", TrainCheckpoint(step=3, data_idx=3, params=p2, opt=o2, metrics={},
+                                    rng_seed=0))
+    ck = store.get("w0")
+    p3, o3 = params_from_numpy(ck.params, dev), adamw_from_numpy(ck.opt, dev)
+    for s in range(3, 6):
+        p3, o3, _ = step(p3, o3, batch(s))
+    for a, b in zip(tree_leaves(p1) + tree_leaves(o1.mu) + tree_leaves(o1.nu),
+                    tree_leaves(p3) + tree_leaves(o3.mu) + tree_leaves(o3.nu)):
+        assert torch.equal(a, b)

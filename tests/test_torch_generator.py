@@ -2,16 +2,12 @@
 
 ``repro_torch.streaming.generator.generate_log(cfg, device="cpu")`` must
 draw the JAX ``generate_log(cfg)`` for the same ``NexmarkConfig``: every
-field bitwise, except that XLA's ``pow``, which does not always round
-correctly, and the port's float64 power rounded once to f32 may differ by
-one ulp, so under a zipf ``key_skew`` other than 0 or 1 an
-auction id (and its category) may differ by one where ``x`` falls across
-an integer.  Tolerance there: at most one lane a log, by one id (none in
-this grid; 1 of 1,048,576 lanes at ``key_skew=1.1`` over 10^6 ids on a
-4 x 64 x 4,096 log, by ``scripts/generator_parity.py``).  The unit cases
-hold ``streaming/prng.py`` bitwise to ``jax.random``; the end-to-end case
-runs each side's ``build_pipeline`` on each side's own log, with no numpy
-hand-over between them.
+field bitwise, at every ``key_skew`` (the zipf ids go through ``pow``,
+which XLA's CPU computes by glibc's ``powf`` and ``prng.pow_f32`` by a port
+of it).  The unit cases hold ``streaming/prng.py`` bitwise to
+``jax.random`` and XLA's elementary functions; the end-to-end case runs each
+side's ``build_pipeline`` on each side's own log, with no numpy hand-over
+between them.
 """
 import dataclasses
 import itertools
@@ -168,15 +164,29 @@ def test_xla_elementary_functions(name, lo, hi):
 
 
 def test_pow_f32_within_an_ulp_of_xla():
-    """``pow_f32`` rounds the float64 power once; XLA's ``pow`` is off by
-    an ulp in some lanes. Tolerance: at most 1 ulp, in at most 0.1% of the
-    lanes (594 of 2^20 at x^-10 by ``scripts/generator_parity.py``)."""
-    rng = np.random.default_rng(5)
-    x = rng.uniform(0.25, 1.0, 1 << 18).astype(np.float32)
-    for e in (-10.0, -1.5, 0.7):
-        d = np.abs(_bits(prng.pow_f32(torch.from_numpy(x), e).numpy())
-                   - _bits(jnp.asarray(x) ** e))
-        assert d.max() <= 1 and (d != 0).mean() <= 1e-3, (e, d.max(), (d != 0).mean())
+    """``pow_f32`` is glibc's ``powf``, which XLA's CPU ``pow`` calls: bitwise
+    (no ulp apart) over random f32 bit patterns (subnormals, negatives,
+    zeros, infinities and NaNs among them) at integer, odd, fractional,
+    tiny and overflowing powers."""
+    x = np.random.default_rng(5).integers(0, 2**32, 1 << 16, dtype=np.uint64)
+    x = x.astype(np.uint32).view(np.float32)
+    for e in (-10.0, -1.5, 0.7, 3.0, -3.0, 1e-3, 200.0):
+        got = prng.pow_f32(torch.from_numpy(x), e).numpy()
+        want = np.asarray(jnp.asarray(x) ** e)
+        same = (_bits(got) == _bits(want)) | (np.isnan(got) & np.isnan(want))
+        assert same.all(), (e, x[~same][:4], got[~same][:4], want[~same][:4])
+
+
+@pytest.mark.parametrize("key_skew", (1.1, 1.5))
+def test_pow_f32_bitwise_on_the_zipf_domain(key_skew):
+    """2^20 lanes of the generator's own ``pow``: the zipf base
+    ``u * ((N+1)^(1-s) - 1) + 1`` at N = 10^6 raised to ``1/(1-s)``, as
+    ``generator.py`` draws ids, bitwise against XLA's ``pow``."""
+    N, s = 1e6, key_skew
+    u = np.random.default_rng(11).uniform(0.0, 1.0, 1 << 20).astype(np.float32)
+    base = u * np.float32((N + 1.0) ** (1.0 - s) - 1.0) + np.float32(1.0)
+    got = prng.pow_f32(torch.from_numpy(base), 1.0 / (1.0 - s)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(jnp.asarray(base) ** (1.0 / (1.0 - s))))
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +204,8 @@ def test_generate_log_matches_jax(key_skew, skew, seed, num_auctions):
     for f in INT_FIELDS:
         np.testing.assert_array_equal(getattr(log, f).numpy(), np.asarray(getattr(jlog, f)), f)
     np.testing.assert_array_equal(_bits(log.price.numpy()), _bits(jlog.price))
-    ids, jids = log.auction.numpy(), np.asarray(jlog.auction).astype(np.int64)
-    if key_skew in (0.0, 1.0):  # randint, or XLA's exp and log: bitwise
-        np.testing.assert_array_equal(ids, jids)
-    else:  # pow: at most one lane, off by one id
-        d = np.abs(ids - jids)
-        assert d.max() <= 1 and (d != 0).sum() <= 1
+    ids = log.auction.numpy()
+    np.testing.assert_array_equal(ids, np.asarray(jlog.auction).astype(np.int64))
     np.testing.assert_array_equal(log.category.numpy(), ids % 5)
     assert log.category.dtype == torch.int32 and log.auction.dtype == torch.int64
 
