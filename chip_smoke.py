@@ -100,9 +100,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step, tokens/s, peak memory); minitron-4b's widths at 2 of its 32
    layers for one step at 4,096 tokens; every ``window_agg`` and
    ``actor_sum`` call of the demo held against its plain version, timed.
-8. Print events/s and sync bytes per round per run, with the card.
-9. A JSON line ``{"kernels": [...]}``, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. The training path of the moe, ssm, hybrid and audio families
+   (``run_other_families``), f32 with TF32 off.  (a) llama4-scout,
+   qwen3-moe, falcon-mamba, zamba2 and seamless at ``reduced()``: the
+   parameters drawn on the card bitwise the CPU's, one step on each device
+   held card to CPU at stated tolerances, and a second card step from the
+   same state bitwise the first.  (b) falcon-mamba-7b (4 of 64 layers,
+   4,096 tokens), zamba2-7b (7 of 81 layers: one macro of six Mamba2
+   layers and the shared block, and one tail layer; 1,024 tokens, as
+   longer sequences exceed the card's memory) and seamless-m4t-large-v2
+   (24 + 24 layers, 4,096 encoder frames, 1,024 decoder tokens) at
+   published widths, batch 1:
+   init seconds, the median of 3 steps after 1 warm-up, tokens/s and the
+   peak device memory, every cut printed; each step's stats folded into a
+   metric lattice (``window_agg``) and read back (``actor_sum``), those
+   calls held against their plain versions and timed.  (c) ``moe_block``
+   forward and backward at qwen3-moe's widths (4,096 x 128 experts, top 8,
+   d_ff 1,536) and llama4-scout's (5,120 x 16 experts, top 1, d_ff 8,192,
+   shared expert) on 4,096 tokens, the MoE FFN held against a per-token
+   reference on 64 tokens as routed at init and under a router that
+   overflows its first k experts (dropped tokens get zero, or the shared
+   expert alone).
+9. Print events/s and sync bytes per round per run, with the card.
+10. A JSON line ``{"kernels": [...]}``, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
 """
@@ -177,6 +198,31 @@ METRIC_WORKERS, METRIC_WINDOW, METRIC_SLOTS, METRIC_STEPS = 16, 10, 8, 200
 TINY_STEPS, TINY_EVERY, TINY_CRASH = 40, 10, 25
 STEPS_100M, WARMUP_100M, BATCH_100M, SEQ_100M = 20, 3, 8, 512
 MINITRON_LAYERS = 2
+# phase 8, the other families: the five architectures of the moe (both
+# layouts), ssm, hybrid and audio families at reduced(), card against CPU;
+# three at published widths, depth (and where named, length) cut so that an
+# f32 AdamW step fits one card (the cuts are printed beside each figure);
+# the MoE block alone at qwen3-moe's and llama4-scout's widths, T tokens
+FAMILY_ARCHS = ("llama4_scout_17b_a16e", "qwen3_moe_235b_a22b", "falcon_mamba_7b", "zamba2_7b",
+                "seamless_m4t_large_v2")
+# (arch, config fields replaced, tokens, encoder frames, length cut): zamba2
+# at train_4k's 4,096 tokens and at 2,048 runs out of the card's 80 GB (its
+# scan holds [L, 112, 64, 64] f32 tensors, 1.9 GB each at 1,024), so it runs
+# 1,024; seamless's decoder takes seq_len // 4 tokens beside 4,096 frames,
+# as the JAX dry run's train cell (src/repro/launch/dryrun.py:98)
+FULL_WIDTH = (
+    ("falcon_mamba_7b", {"n_layers": 4}, 4_096, 0, None),
+    ("zamba2_7b", {"n_layers": 7}, 1_024, 0,
+     "1,024 of train_4k's 4,096 tokens: 2,048 and 4,096 exceed the card's memory"),
+    ("seamless_m4t_large_v2", {}, 1_024, 4_096, None),
+)
+FULL_WARMUP, FULL_STEPS = 1, 3
+TRAIN_METRIC_WORKERS = 4  # launch/train.py's --metric-workers default
+MOE_LAYER_ARCHS, MOE_TOKENS, MOE_SAMPLED = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e"), 4_096, 64
+# card against CPU at reduced(): tests/test_torch_families_step.py's
+# tolerances (the hybrid's grad norm carries the scan's rounding through
+# Mamba2's gated RMSNorm)
+GNORM_RTOL = {"hybrid": 5e-5}
 # the printed metric windows, card against CPU after 40 steps: the f32
 # products and sums of the two devices differ in the last bits, about 1e-6
 # relatively, so a printed digit may turn; tokens are exact counts
@@ -2081,7 +2127,7 @@ def timed_steps(cfg, batch: int, seq: int, steps: int, dev, q_chunk: int) -> dic
     n_params = sum(x.numel() for x in tree_leaves(params))
     opt = adamw_init(params)
     step_fn = make_train_step(cfg, q_chunk=q_chunk)
-    mspec = MetricSpec(num_workers=4, window_len=5)
+    mspec = MetricSpec(num_workers=TRAIN_METRIC_WORKERS, window_len=5)
     metrics = metrics_init(mspec, dev)
     secs, losses = [], []
     for s in range(steps):
@@ -2089,7 +2135,8 @@ def timed_steps(cfg, batch: int, seq: int, steps: int, dev, q_chunk: int) -> dic
         t0 = time.perf_counter()
         b = synthetic_batch(SEED, s, batch, seq, cfg.vocab, dev)
         params, opt, stats = step_fn(params, opt, b)
-        metrics = metrics_fold(mspec, metrics, s % 4, s // 4, stats["loss"], stats["tokens"],
+        w, ts = s % TRAIN_METRIC_WORKERS, s // TRAIN_METRIC_WORKERS
+        metrics = metrics_fold(mspec, metrics, w, ts, stats["loss"], stats["tokens"],
                                stats["grad_norm"])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -2192,6 +2239,393 @@ def run_training(dev, card: str) -> tuple[dict, dict]:
         log(json.dumps(rows["actor_sum"][-1]))
     if not (rows["window_agg"] and rows["actor_sum"]):
         raise AssertionError("training: no window_agg or actor_sum call recorded")
+    return counts, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training path of the moe, ssm, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+
+def family_batch(cfg, idx: int, B: int, seq: int, frames: int, dev) -> dict:
+    """The launcher's token stream (``synthetic_batch``, the same on every
+    device), and for the audio family ``frames`` stub frame embeddings a
+    sequence, drawn on the host from ``SEED`` and ``idx`` and moved."""
+    from repro_torch.launch.train import synthetic_batch
+
+    b = synthetic_batch(SEED, idx, B, seq, cfg.vocab, dev)
+    if cfg.family == "audio":
+        g = torch.Generator().manual_seed(SEED * 1_000_003 + idx)
+        b["enc_embeds"] = torch.randn((B, frames, cfg.d_model), generator=g).to(dev)
+    return b
+
+
+def family_parity(dev, card: str) -> None:
+    """8a: each of ``FAMILY_ARCHS`` at ``reduced()``: parameters drawn on
+    the card bitwise the CPU's; one ``make_train_step`` step on each device
+    from them and the same batch (2 x 64 tokens), held card to CPU at
+    tests/test_torch_families_step.py's tolerances (loss, grad norm,
+    moments, and parameters to 0.05 lr where the first moment stands above
+    1e-3 of its leaf's largest, else 2.2 lr); a second step on the card
+    from the same state bitwise the first (parameters and both moments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.streaming import prng
+    from repro_torch.training import adamw_init, make_train_step
+
+    lr = 1e-3
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        step = make_train_step(cfg, q_chunk=32, ssm_chunk=16, lr=lr)
+        out, t = {}, {}
+        for d in ("cpu", dev):
+            p = init_params(cfg, prng.prng_key(SEED, d), dtype=torch.float32)
+            sync(d)
+            t0 = time.perf_counter()
+            out[str(d)] = (p, *step(p, adamw_init(p), family_batch(cfg, 0, 2, 64, 64, d)))
+            sync(d)
+            t[str(d)] = time.perf_counter() - t0
+        p_cpu, pc, oc, sc = out["cpu"]
+        p_card, pg, og, sg = out[str(dev)]
+        for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{arch}: parameters drawn on the card differ from the CPU's")
+        gaps = {}
+        for k in ("loss", "grad_norm"):
+            rtol = GNORM_RTOL.get(cfg.family, 1e-5) if k == "grad_norm" else 1e-5
+            gaps[k] = abs(float(sg[k]) - float(sc[k])) / abs(float(sc[k]))
+            if not gaps[k] <= rtol:
+                raise AssertionError(f"{arch}: {k} card {float(sg[k])} CPU {float(sc[k])}")
+        for kind, a_, b_ in (("mu", og.mu, oc.mu), ("nu", og.nu, oc.nu)):
+            leaves = tree_leaves(b_)
+            top = max(float(x.abs().max()) for x in leaves)
+            gaps[kind] = 0.0
+            for a, b in zip(tree_leaves(a_), leaves):
+                atol = 1e-4 * max(float(b.abs().max()), 1e-4 * top)
+                frac = float((a.cpu() - b).abs().max()) / atol
+                if frac > 1.0:
+                    raise AssertionError(f"{arch}: {kind} card against CPU at {frac} of its atol")
+                gaps[kind] = max(gaps[kind], frac)
+        sure_lr = all_lr = 0.0
+        for a, b, m in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(oc.mu)):
+            d = (a.cpu() - b).abs() / lr
+            sure = m.abs() > 1e-3 * m.abs().max()
+            sure_lr = max(sure_lr, float(d[sure].max()) if bool(sure.any()) else 0.0)
+            all_lr = max(all_lr, float(d.max()))
+        if sure_lr > 0.05 or all_lr > 2.2:
+            raise AssertionError(f"{arch}: parameters card against CPU {sure_lr} lr where the "
+                                 f"gradient is sure, {all_lr} lr in all")
+        p2, o2, _ = step(p_card, adamw_init(p_card), family_batch(cfg, 0, 2, 64, 64, dev))
+        for a, b in zip(tree_leaves(p2) + tree_leaves(o2.mu) + tree_leaves(o2.nu),
+                        tree_leaves(pg) + tree_leaves(og.mu) + tree_leaves(og.nu)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{arch}: a second card step from the same state differs")
+        log(json.dumps({"family_parity": arch, "family": cfg.family, "init_bitwise": True,
+                        "repeat_bitwise": True, "loss": float(sg["loss"]),
+                        "rel_gap_loss": gaps["loss"], "rel_gap_grad_norm": gaps["grad_norm"],
+                        "moments_gap_of_atol": [gaps["mu"], gaps["nu"]],
+                        "param_gap_lr_sure": sure_lr, "param_gap_lr_all": all_lr,
+                        "step_s_card": t[str(dev)], "step_s_cpu": t["cpu"], "card": card}))
+
+
+def full_width_run(arch: str, repl: dict, seq: int, frames: int, length_cut, dev,
+                   card: str) -> dict:
+    """8b: ``arch`` at its published widths (``repl`` cuts depth), batch 1
+    x ``seq`` tokens (and ``frames`` encoder frames): init, then
+    ``FULL_WARMUP + FULL_STEPS`` steps of ``make_train_step`` as the
+    launcher takes them, each step's stats folded into the launcher's
+    metric lattice of ``TRAIN_METRIC_WORKERS`` workers, step ``s`` as
+    worker ``s % TRAIN_METRIC_WORKERS`` (``metrics_fold``: ``window_agg``),
+    and window 0 read after every step as the launcher reads it
+    (``metrics_read``: ``actor_sum`` over the workers' rows): complete
+    after the last step only, then held against the losses; the peak
+    device memory from a reset before the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.streaming import prng
+    from repro_torch.training import (MetricSpec, adamw_init, make_train_step, metrics_fold,
+                                      metrics_init, metrics_read)
+
+    cfg = dataclasses.replace(get_config(arch), **repl)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, prng.prng_key(SEED, dev), dtype=torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, q_chunk=512, ssm_chunk=256)
+    n = FULL_WARMUP + FULL_STEPS
+    mspec = MetricSpec(num_workers=TRAIN_METRIC_WORKERS, window_len=n // TRAIN_METRIC_WORKERS)
+    metrics = metrics_init(mspec, dev)
+    secs, losses = [], []
+    for s in range(n):
+        b = family_batch(cfg, s, 1, seq, frames, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, stats = step_fn(params, opt, b)
+        w, ts = s % TRAIN_METRIC_WORKERS, s // TRAIN_METRIC_WORKERS
+        metrics = metrics_fold(mspec, metrics, w, ts, stats["loss"], stats["tokens"],
+                               stats["grad_norm"])
+        vals, ok = metrics_read(mspec, metrics, 0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(stats["loss"]))
+        if bool(ok[0]) != (s == n - 1):
+            raise AssertionError(f"{cfg.name}: window 0 complete={bool(ok[0])} after step {s}")
+    peak = torch.cuda.max_memory_allocated()
+    lnv = float(np.log(cfg.vocab))
+    if float(vals["tokens"][0]) != n * seq:
+        raise AssertionError(f"{cfg.name}: metric window {ok}, tokens {vals['tokens']}")
+    if abs(float(vals["mean_loss"][0]) - float(np.mean(losses))) > 1e-5 * lnv:
+        raise AssertionError(f"{cfg.name}: window mean loss {vals['mean_loss']}, steps {losses}")
+    if not all(np.isfinite(losses)) or not lnv - 1.0 <= losses[-1] <= lnv + 2.0:
+        raise AssertionError(f"{cfg.name}: losses {losses}, expected finite, near ln V = {lnv}")
+    med = float(np.median(secs[FULL_WARMUP:]))
+    cut = {k: f"{v} of {getattr(get_config(arch), k)}" for k, v in repl.items()}
+    if length_cut:
+        cut["tokens"] = length_cut
+    r = {"train": f"{cfg.name} published widths", "cut": cut or "none", "batch": 1,
+         "tokens": seq, "encoder_frames": frames, "params": n_params, "init_s": init_s,
+         "step_s": secs, "median_step_s": med, "tokens_per_s": seq / med,
+         "encoder_frames_per_s": frames / med,
+         "max_memory_allocated_gb": peak / 1e9, "losses": losses, "ln_vocab": lnv,
+         "window_mean_loss": float(vals["mean_loss"][0]), "card": card}
+    del params, opt, metrics, stats
+    torch.cuda.empty_cache()
+    log(json.dumps(r))
+    return r
+
+
+def route_reference(pm, dims, xf, C: int) -> tuple:
+    """Routing computed apart from ``moe.route``: each token's top-k experts
+    (``torch.topk``), gates renormalised over them; a pair is kept when
+    fewer than ``C`` lower tokens chose its expert (a cumulative count, no
+    sort).  Returns (experts [T, K], gates [T, K], kept [T, K])."""
+    probs = torch.softmax(xf @ pm["router"], dim=-1)
+    vals, idx = torch.topk(probs, dims.top_k, dim=-1)
+    gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    chose = torch.zeros(xf.shape[0], dims.n_experts, dtype=torch.int64, device=xf.device)
+    chose.scatter_(1, idx, 1)
+    return idx, gates, torch.gather((chose.cumsum(0) - 1) < C, 1, idx)
+
+
+def moe_reference(pm, dims, xf, routing, tokens) -> torch.Tensor:
+    """The MoE FFN of ``tokens``: the sum over each one's kept pairs of
+    gate x SwiGLU(expert), by ``torch.matmul`` on that token alone, plus
+    the shared expert.  ``routing``: :func:`route_reference`'s."""
+    import torch.nn.functional as F
+
+    idx, gates, kept = routing
+    out = []
+    for t in tokens:
+        x = xf[t:t + 1]
+        acc = torch.zeros(1, xf.shape[1], device=xf.device)
+        for k in range(dims.top_k):
+            if bool(kept[t, k]):
+                e = int(idx[t, k])
+                h = F.silu(torch.matmul(x, pm["w_gate"][e])) * torch.matmul(x, pm["w_up"][e])
+                acc = acc + gates[t, k] * torch.matmul(h, pm["w_down"][e])
+        if dims.shared_expert:
+            sh = pm["shared"]
+            acc = acc + torch.matmul(F.silu(torch.matmul(x, sh["w_gate"]))
+                                     * torch.matmul(x, sh["w_up"]), sh["w_down"])
+        out.append(acc[0])
+    return torch.stack(out)
+
+
+def check_moe_outputs(name: str, pm, dims, xf, C: int) -> dict:
+    """``moe_ffn`` on ``xf [T, D]`` against :func:`moe_reference` on
+    ``MOE_SAMPLED`` tokens (up to half of them tokens with a dropped pair),
+    to 1e-4 of the reference's largest magnitude (independent f32 sums);
+    a token whose every pair dropped gets exactly the shared expert's
+    output (the same product on all T tokens), or zero."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.mlp import mlp_ffn
+
+    T = xf.shape[0]
+    y = moe_lib.moe_ffn(pm, dims, xf[None])[0]
+    routing = route_reference(pm, dims, xf, C)
+    kept = routing[2]
+    g = torch.Generator().manual_seed(SEED)
+    dropped_tok = torch.nonzero(~kept.all(-1)).flatten().cpu()
+    some = dropped_tok[torch.randperm(len(dropped_tok), generator=g)[:MOE_SAMPLED // 2]]
+    rest = torch.randperm(T, generator=g)[:MOE_SAMPLED - len(some)]
+    tokens = [int(t) for t in torch.cat([some, rest])]
+    ref = moe_reference(pm, dims, xf, routing, tokens)
+    err = float((y[tokens] - ref).abs().max())
+    if not err <= 1e-4 * float(ref.abs().max()):
+        raise AssertionError(f"{name}: moe_ffn against the per-token reference: {err}")
+    none_kept = torch.nonzero(~kept.any(-1)).flatten()
+    if len(none_kept):
+        want = (mlp_ffn(pm["shared"], xf)[none_kept] if dims.shared_expert
+                else torch.zeros_like(y[none_kept]))
+        if not torch.equal(y[none_kept], want):
+            raise AssertionError(f"{name}: a token with every pair dropped got another output")
+    return {"sampled": len(tokens), "sampled_with_a_dropped_pair": len(some),
+            "max_abs_err": err, "ref_max": float(ref.abs().max()),
+            "dropped_pair_share": float(1.0 - kept.float().mean()),
+            "tokens_all_dropped": int(len(none_kept))}
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The dotted key paths of ``tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+@contextlib.contextmanager
+def plain_gather_rows():
+    """``moe.gather_rows`` as a plain index of the zero-padded rows, whose
+    backward is autograd's own scatter-add (``index_put_`` with
+    accumulate)."""
+    from repro_torch.models import moe as moe_lib
+
+    saved = moe_lib.gather_rows
+    moe_lib.gather_rows = lambda src, idx, inv: torch.cat(
+        [src, src.new_zeros((1, *src.shape[1:]))])[idx]
+    try:
+        yield
+    finally:
+        moe_lib.gather_rows = saved
+
+
+def moe_layer_run(arch: str, dev, card: str) -> dict:
+    """8c: ``moe_block`` (attention + MoE FFN) at ``arch``'s published
+    widths on ``MOE_TOKENS`` tokens, forward and backward (one warm-up, two
+    timed); the gradients of its input and of every parameter against the
+    same block's with :func:`plain_gather_rows` (timed too), each to 1e-4
+    of the plain gradient's largest magnitude, the forward check's
+    tolerance; then its MoE FFN, on the timed block's post-attention
+    residual, against the per-token reference as the router routes at
+    init and with a router biased to the first k experts, which overflows
+    them (most tokens then drop every pair)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import rmsnorm, tree_leaves, tree_map
+    from repro_torch.models.moe import capacity
+    from repro_torch.streaming import prng
+
+    cfg = get_config(arch)
+    dims = lm.moe_dims(cfg)
+    C = capacity(dims, MOE_TOKENS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = lm.init_moe_block(prng.prng_key(SEED, dev), cfg, torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=g).to(dev)
+    gy = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=g).to(dev)
+    leaves = tree_map(lambda t_: t_.detach().requires_grad_(True), p)
+    fwd, bwd = [], []
+    for _ in range(3):
+        for t_ in tree_leaves(leaves):
+            t_.grad = None
+        xr = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.moe_block(leaves, cfg, xr, q_chunk=512)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.backward(gy)
+        torch.cuda.synchronize()
+        fwd.append(t1 - t0)
+        bwd.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    if not (bool(torch.isfinite(out).all()) and bool(torch.isfinite(xr.grad).all())
+            and all(bool(torch.isfinite(t_.grad).all()) for t_ in tree_leaves(leaves))):
+        raise AssertionError(f"{cfg.name}: moe_block output or gradients not finite")
+    n_params = sum(t_.numel() for t_ in tree_leaves(p))
+    got = [xr.grad] + [t_.grad for t_ in tree_leaves(leaves)]
+    del out, xr
+    plain_s = []
+    with plain_gather_rows():
+        for _ in range(2):
+            plain = tree_map(lambda t_: t_.detach().requires_grad_(True), p)
+            xp = x.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.moe_block(plain, cfg, xp, q_chunk=512).backward(gy)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+    grad_err = {}
+    for name, a, b in zip(["input", *leaf_names(p)], got,
+                          [xp.grad] + [t_.grad for t_ in tree_leaves(plain)]):
+        grad_err[name] = float((a - b).abs().max()) / float(b.abs().max())
+        if not grad_err[name] <= 1e-4:
+            raise AssertionError(f"{cfg.name}: {name} gradient against the scatter-add "
+                                 f"backward's at {grad_err[name]} of its largest")
+    del leaves, plain, xp, got
+    with torch.no_grad():
+        h = x + lm.attn.attn_train(p["attn"], lm.attn_dims(cfg),
+                                   rmsnorm(x, p["ln1"], cfg.norm_eps), q_chunk=512)
+        xf = rmsnorm(h, p["ln2"], cfg.norm_eps)[0]
+        del h
+        routed = check_moe_outputs(f"{cfg.name} moe_ffn", p["moe"], dims, xf, C)
+        # overflow: on |x|, the first k experts' router columns raised so
+        # that their logits lead the others' by about 30
+        biased = dict(p["moe"], router=p["moe"]["router"].clone())
+        biased["router"][:, :dims.top_k] += 40.0 / cfg.d_model
+        overflow = check_moe_outputs(f"{cfg.name} moe_ffn overflowed", biased, dims,
+                                     xf.abs(), C)
+    if not overflow["tokens_all_dropped"] >= MOE_TOKENS - C * dims.top_k:
+        raise AssertionError(f"{cfg.name}: the biased router dropped {overflow}")
+    r = {"moe_layer": f"{cfg.name} moe_block, published widths", "tokens": MOE_TOKENS,
+         "d_model": cfg.d_model, "experts": dims.n_experts, "top_k": dims.top_k,
+         "d_ff": dims.d_ff, "shared_expert": dims.shared_expert, "capacity": C,
+         "params": n_params, "init_s": init_s, "fwd_s": fwd, "bwd_s": bwd,
+         "median_fwd_s": float(np.median(fwd[1:])), "median_bwd_s": float(np.median(bwd[1:])),
+         "plain_index_fwd_bwd_s": plain_s,
+         "grad_rel_err_to_scatter_add": {"input": grad_err["input"],
+                                         "router": grad_err["moe.router"],
+                                         "max": max(grad_err.values())},
+         "max_memory_allocated_gb": peak / 1e9, "routed": routed, "overflowed": overflow,
+         "card": card}
+    del p, biased, x, gy, xf
+    torch.cuda.empty_cache()
+    log(json.dumps(r))
+    return r
+
+
+def run_other_families(dev, card: str) -> tuple[dict, dict]:
+    """Phase 8: 8a :func:`family_parity`; 8b :func:`full_width_run` for each
+    of ``FULL_WIDTH``, its kernel calls recorded and counted (the phase's
+    main path: ``metrics_fold`` launches ``window_agg``, ``metrics_read``
+    ``actor_sum``); 8c :func:`moe_layer_run` for each of ``MOE_LAYER_ARCHS``;
+    each recorded kernel call held against its plain version and timed.
+    Returns the launches of 8b and the kernels' rows."""
+    t0 = time.perf_counter()
+    family_parity(dev, card)
+    log(f"8a done in {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    with recording_kernel_calls(distinct=True) as calls:
+        for arch, repl, seq, frames, length_cut in FULL_WIDTH:
+            full_width_run(arch, repl, seq, frames, length_cut, dev, card)
+    counts = check_launches("other families", {"window_agg", "actor_sum"})
+    log(f"8b done in {time.perf_counter() - t0:.1f} s")
+    for arch in MOE_LAYER_ARCHS:
+        moe_layer_run(arch, dev, card)
+    log(f"8c done in {time.perf_counter() - t0:.1f} s")
+    rows = {"window_agg": [], "actor_sum": []}
+    for args, kw in calls["window_agg"]:
+        vals, _, _, W_ = args
+        name = (f"window_agg other families op={kw['op']} S={vals.shape[0]} L={vals.shape[1]} "
+                f"W={W_} C={kw.get('C', 1)}")
+        rows["window_agg"].append(dict(window_agg_row(dev, name, args, kw, timed=True),
+                                       card=card))
+        log(json.dumps(rows["window_agg"][-1]))
+    for args, _ in calls["actor_sum"]:
+        rows["actor_sum"].append(dict(actor_sum_row(dev, "actor_sum other families read",
+                                                    args[0], timed=True), card=card))
+        log(json.dumps(rows["actor_sum"][-1]))
+    if not (rows["window_agg"] and rows["actor_sum"]):
+        raise AssertionError("other families: no window_agg or actor_sum call recorded")
     return counts, rows
 
 
@@ -2301,7 +2735,17 @@ def main() -> int:
         kernel_rows[k]["training_launches"] = counts[k]
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== phase 8: throughput {card}")
+    log(f"== phase 8: the training path of the moe, ssm, hybrid and audio families {card}")
+    counts, family_rows = run_other_families(dev, card)
+    for k, c in counts.items():
+        launches[k] += c
+    for k in ("window_agg", "actor_sum"):
+        kernel_rows[k]["other_families"] = [{k_: r[k_] for k_ in keep}
+                                            for r in family_rows[k]]
+        kernel_rows[k]["other_families_launches"] = counts[k]
+    log(f"other families done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 9: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
@@ -2329,7 +2773,8 @@ def main() -> int:
                                       "device_kernels", "parent_device_kernels",
                                       "standalone_gated_delta_merge", "metrics_lattice",
                                       "metrics_lattice_launches", "training",
-                                      "training_launches")
+                                      "training_launches", "other_families",
+                                      "other_families_launches")
                if k_ in row},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

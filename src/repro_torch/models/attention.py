@@ -1,6 +1,7 @@
-"""Attention: GQA with RoPE and chunked-causal training, the train path of
-``repro.models.attention`` (serving's prefill, decode, cross-attention and
-KV caches are ROADMAP Queue 1, item 3).
+"""Attention: GQA with RoPE and chunked-causal training, and the
+encoder-decoder's cross-attention: the train path of
+``repro.models.attention`` (serving's prefill, decode and KV caches are
+ROADMAP Queue 1, item 3, and raise).
 
 As in the JAX package, training scans over query chunks, so the live
 working set is one ``[B, H, cq, S_kv]`` block, and a sliding window slices
@@ -15,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, serving_not_ported
 from repro_torch.streaming import prng
 
 NEG = -1e30
@@ -163,3 +164,29 @@ def attn_train(params, dims: AttnDims, x, *, q_chunk: int = 512):
     o = _mask_pad_heads(o, dims)
     o = o.reshape(B, S, dims.hp * dims.head_dim)
     return o @ params["wo"]
+
+
+def attn_cross(params, dims: AttnDims, x, enc_kv, *, q_chunk: int = 512):
+    """Cross-attention (decoder over encoder KV, non-causal, no RoPE)."""
+    B, S, _ = x.shape
+    Hp, hd = dims.hp, dims.head_dim
+    q = (x @ params["wq"]).reshape(B, S, Hp, hd)
+    o = attend_chunked(q, enc_kv["k"], enc_kv["v"], causal=False, q_chunk=q_chunk)
+    o = _mask_pad_heads(o, dims)
+    o = o.reshape(B, S, Hp * hd)
+    return o @ params["wo"]
+
+
+def cross_kv(params, dims: AttnDims, enc_out):
+    """The encoder's keys and values for :func:`attn_cross`, expanded to
+    the ``Hp`` query heads by :func:`_expand_kv`'s broadcast."""
+    B, T, _ = enc_out.shape
+    K, hd = dims.n_kv_heads, dims.head_dim
+    k = (enc_out @ params["wk"]).reshape(B, T, K, hd)
+    v = (enc_out @ params["wv"]).reshape(B, T, K, hd)
+    return {"k": _expand_kv(k, dims), "v": _expand_kv(v, dims)}
+
+
+attn_prefill = serving_not_ported("attn_prefill")
+attn_decode = serving_not_ported("attn_decode")
+init_cache = serving_not_ported("init_cache")

@@ -52,6 +52,16 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
     return x
 
 
+def serving_not_ported(name: str):
+    """A serving entry point of the JAX package (prefill, decode, caches)
+    that the port has not yet: calling it raises."""
+    def stub(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is the serving path, not ported yet: ROADMAP Queue 1, item 3")
+    stub.__name__ = stub.__qualname__ = name
+    return stub
+
+
 # --------------------------------------------------------------------------
 # initializers
 # --------------------------------------------------------------------------

@@ -1,13 +1,29 @@
-"""Model assembly, the training path of ``repro.models.lm`` for the dense
-family: init and train-forward of the decoder-only transformer (GQA +
-SwiGLU) of the ``dense`` and ``vlm`` families; vlm prepends a stub
-patch-embedding prefix to the token embeddings.
+"""Model assembly, the training path of ``repro.models.lm``: init and
+train-forward of every family.
 
-The other families (moe, ssm, hybrid, audio) are ROADMAP Queue 1, item 2,
-and serving (prefill, decode, caches) item 3: they raise here.  As in the
-JAX package, a stack's parameters are stacked over layers and the layer
-body is rematerialised in the backward pass (``torch.utils.checkpoint``,
-the port's ``jax.checkpoint``).
+Families:
+  dense / vlm        : decoder-only transformer (GQA + SwiGLU); vlm prepends a
+                       stub patch-embedding prefix to the token embeddings.
+  moe                : same skeleton, FFN replaced by MoE every
+                       ``moe_every``-th layer (a macro layer of
+                       ``moe_every - 1`` dense blocks and one MoE block keeps
+                       the stack homogeneous).
+  ssm                : pure Mamba1 stack (attention-free).
+  hybrid             : Mamba2 stack with ONE shared-weight attention block
+                       applied after every ``hybrid_attn_every`` mamba layers
+                       (zamba2); macros of [every x mamba + shared attn],
+                       plus an unscanned tail of mamba layers.  The shared
+                       block's gradient is the sum over its uses, added by
+                       autograd in program order.
+  audio (enc-dec)    : bidirectional encoder over stub frame embeddings +
+                       causal decoder with cross-attention (seamless).
+
+Serving (prefill, decode, caches) is ROADMAP Queue 1, item 3: its entry
+points raise ``NotImplementedError``, and so does the one-token MoE path.  As in the JAX package,
+a stack's parameters are stacked over layers and the layer body is
+rematerialised in the backward pass (``torch.utils.checkpoint``, the
+port's ``jax.checkpoint``); a nested stack (a macro's layers) runs as a
+plain loop inside the checkpointed body.
 """
 from __future__ import annotations
 
@@ -19,20 +35,17 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import flags
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import AttnDims
 from repro_torch.models.common import (
-    embed, embed_init, init_rmsnorm, rmsnorm, tree_leaves, tree_map, unembed_loss,
+    embed, embed_init, init_rmsnorm, rmsnorm, serving_not_ported, tree_leaves, tree_map,
+    unembed_loss,
 )
 from repro_torch.models.mlp import init_mlp, mlp_ffn
+from repro_torch.models.moe import MoEDims
+from repro_torch.models.ssm import SSMDims
 from repro_torch.streaming import prng
-
-DENSE_FAMILIES = ("dense", "vlm")
-
-
-def _not_ported(cfg: ArchConfig):
-    return NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port has the dense "
-        "and vlm families; the others are ROADMAP Queue 1, item 2")
 
 
 # --------------------------------------------------------------------------
@@ -53,14 +66,43 @@ def attn_dims(cfg: ArchConfig, causal: bool = True, sliding: int | None = None) 
     )
 
 
+def moe_dims(cfg: ArchConfig) -> MoEDims:
+    return MoEDims(
+        d_model=cfg.d_model,
+        n_experts=cfg.moe_experts,
+        top_k=cfg.moe_top_k,
+        d_ff=cfg.moe_d_ff or cfg.d_ff,
+        capacity_factor=cfg.capacity_factor,
+        shared_expert=cfg.moe_shared_expert,
+        shared_d_ff=cfg.d_ff,
+    )
+
+
+def ssm_dims(cfg: ArchConfig) -> SSMDims:
+    return SSMDims(
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state,
+        d_conv=cfg.ssm_conv,
+        expand=cfg.ssm_expand,
+        version=cfg.ssm_version,
+        n_heads=cfg.ssm_heads,
+    )
+
+
 # --------------------------------------------------------------------------
 # single blocks
 # --------------------------------------------------------------------------
 
 
+def _lead(key) -> tuple:
+    """The key batch's shape and device: a stacked initializer's leading
+    axes."""
+    return tuple(key[0].shape), key[0].device
+
+
 def init_dense_block(key, cfg: ArchConfig, dtype) -> dict:
     k1, k2 = prng.split(key, 2)
-    lead, dev = tuple(key[0].shape), key[0].device
+    lead, dev = _lead(key)
     return {
         "ln1": init_rmsnorm(cfg.d_model, dtype, lead, dev),
         "attn": attn.init_attn(k1, attn_dims(cfg), dtype),
@@ -76,6 +118,40 @@ def dense_block(p, cfg: ArchConfig, h, *, q_chunk=512):
     return h
 
 
+def init_moe_block(key, cfg: ArchConfig, dtype) -> dict:
+    k1, k2 = prng.split(key, 2)
+    lead, dev = _lead(key)
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, lead, dev),
+        "attn": attn.init_attn(k1, attn_dims(cfg), dtype),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, lead, dev),
+        "moe": moe_lib.init_moe(k2, moe_dims(cfg), dtype),
+    }
+
+
+def moe_block(p, cfg: ArchConfig, h, *, q_chunk=512):
+    h = h + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
+                            q_chunk=q_chunk)
+    h = h + moe_lib.moe_ffn(p["moe"], moe_dims(cfg), rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return h
+
+
+def init_mamba_block(key, cfg: ArchConfig, dtype) -> dict:
+    lead, dev = _lead(key)
+    return {
+        "ln": init_rmsnorm(cfg.d_model, dtype, lead, dev),
+        "mamba": ssm_lib.init_mamba(key, ssm_dims(cfg), dtype),
+    }
+
+
+def mamba_block(p, cfg: ArchConfig, h, state=None, conv=None, chunk=256):
+    y, st = ssm_lib.mamba_forward(
+        p["mamba"], ssm_dims(cfg), rmsnorm(h, p["ln"], cfg.norm_eps),
+        state=state, conv_prev=conv, chunk=chunk,
+    )
+    return h + y, st
+
+
 # --------------------------------------------------------------------------
 # parameter init for the whole model
 # --------------------------------------------------------------------------
@@ -83,15 +159,14 @@ def dense_block(p, cfg: ArchConfig, h, *, q_chunk=512):
 
 def _stacked(init_fn, key, n: int):
     """``jax.vmap(init_fn)(jax.random.split(key, n))``: ``init_fn`` draws
-    for the key batch of the ``n`` split keys at once."""
+    for the key batch of the ``n`` split keys at once (``key`` may itself
+    be a batch, as in a stack of stacks)."""
     return init_fn(prng.split_keys(key, n))
 
 
 def init_params(cfg: ArchConfig, key: prng.Key, dtype=torch.bfloat16) -> dict:
     """The JAX package's ``init_params(cfg, key, dtype)`` bit for bit, on
     the device of ``key`` (``prng.prng_key(seed, device)``)."""
-    if cfg.family not in DENSE_FAMILIES:
-        raise _not_ported(cfg)
     ks = prng.split(key, 8)
     dev = key[0].device
     p: dict[str, Any] = {
@@ -100,7 +175,70 @@ def init_params(cfg: ArchConfig, key: prng.Key, dtype=torch.bfloat16) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(ks[1], (cfg.vocab, cfg.d_model), dtype)
-    p["layers"] = _stacked(lambda k: init_dense_block(k, cfg, dtype), ks[2], cfg.n_layers)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        p["layers"] = _stacked(lambda k: init_dense_block(k, cfg, dtype), ks[2], cfg.n_layers)
+    elif fam == "moe":
+        every = cfg.moe_every
+        n_macro = cfg.n_layers // every
+        if every == 1:
+            p["layers"] = _stacked(lambda k: init_moe_block(k, cfg, dtype), ks[2], n_macro)
+        else:
+            # macro layer = (every-1) dense + 1 moe
+            p["layers"] = _stacked(
+                lambda k: {
+                    "dense": _stacked(lambda kk: init_dense_block(kk, cfg, dtype), k, every - 1),
+                    "moe": init_moe_block(prng.fold_in(k, 7), cfg, dtype),
+                },
+                ks[2],
+                n_macro,
+            )
+    elif fam == "ssm":
+        p["layers"] = _stacked(lambda k: init_mamba_block(k, cfg, dtype), ks[2], cfg.n_layers)
+    elif fam == "hybrid":
+        every = cfg.hybrid_attn_every
+        n_macro = cfg.n_layers // every
+        tail = cfg.n_layers % every
+        p["layers"] = _stacked(
+            lambda k: _stacked(lambda kk: init_mamba_block(kk, cfg, dtype), k, every),
+            ks[2],
+            n_macro,
+        )
+        if tail:
+            p["tail"] = _stacked(lambda k: init_mamba_block(k, cfg, dtype), ks[3], tail)
+        p["shared_attn"] = {
+            "ln": init_rmsnorm(cfg.d_model, dtype, device=dev),
+            "attn": attn.init_attn(ks[4], attn_dims(cfg), dtype),
+            "ln2": init_rmsnorm(cfg.d_model, dtype, device=dev),
+            "mlp": init_mlp(ks[5], cfg.d_model, cfg.d_ff, dtype),
+        }
+    elif fam == "audio":  # encoder-decoder
+        def enc_layer(k):
+            lead, kdev = _lead(k)
+            return {
+                "ln1": init_rmsnorm(cfg.d_model, dtype, lead, kdev),
+                "attn": attn.init_attn(k, attn_dims(cfg, causal=False), dtype),
+                "ln2": init_rmsnorm(cfg.d_model, dtype, lead, kdev),
+                "mlp": init_mlp(prng.fold_in(k, 3), cfg.d_model, cfg.d_ff, dtype),
+            }
+
+        def dec_layer(k):
+            lead, kdev = _lead(k)
+            return {
+                "ln1": init_rmsnorm(cfg.d_model, dtype, lead, kdev),
+                "attn": attn.init_attn(k, attn_dims(cfg), dtype),
+                "lnx": init_rmsnorm(cfg.d_model, dtype, lead, kdev),
+                "xattn": attn.init_attn(prng.fold_in(k, 5), attn_dims(cfg, causal=False), dtype),
+                "ln2": init_rmsnorm(cfg.d_model, dtype, lead, kdev),
+                "mlp": init_mlp(prng.fold_in(k, 3), cfg.d_model, cfg.d_ff, dtype),
+            }
+
+        p["enc_layers"] = _stacked(enc_layer, ks[2], cfg.enc_layers)
+        p["enc_norm"] = init_rmsnorm(cfg.d_model, dtype, device=dev)
+        p["layers"] = _stacked(dec_layer, ks[3], cfg.dec_layers)
+    else:
+        raise ValueError(fam)
     return p
 
 
@@ -109,12 +247,18 @@ def init_params(cfg: ArchConfig, key: prng.Key, dtype=torch.bfloat16) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _scan_layers(stack_params, body, h, remat: bool = True):
-    """``body`` over the layers of a stacked tree, in order.  The stack is
-    unbound once, so its gradient is one stack of the layers' gradients."""
+def _layers(stack_params) -> list:
+    """The layers of a stacked tree, in order.  The stack is unbound once,
+    so its gradient is one stack of the layers' gradients."""
     layers = tree_map(lambda x: x.unbind(0), stack_params)
-    for i in range(tree_leaves(stack_params)[0].shape[0]):
-        p_l = tree_map(lambda xs: xs[i], layers)
+    n = tree_leaves(stack_params)[0].shape[0]
+    return [tree_map(lambda xs: xs[i], layers) for i in range(n)]
+
+
+def _scan_layers(stack_params, body, h, remat: bool = True):
+    """``body`` over the layers of a stacked tree, in order, each layer
+    rematerialised in the backward pass when ``remat``."""
+    for p_l in _layers(stack_params):
         if remat and torch.is_grad_enabled():
             h = checkpoint(body, h, p_l, use_reentrant=False)
         else:
@@ -123,10 +267,76 @@ def _scan_layers(stack_params, body, h, remat: bool = True):
 
 
 def _decoder_stack(cfg: ArchConfig, params, h, *, q_chunk=512, ssm_chunk=256, remat=True):
-    if cfg.family not in DENSE_FAMILIES:
-        raise _not_ported(cfg)
-    return _scan_layers(params["layers"],
-                        lambda hh, p: dense_block(p, cfg, hh, q_chunk=q_chunk), h, remat)
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        h = _scan_layers(params["layers"],
+                         lambda hh, p: dense_block(p, cfg, hh, q_chunk=q_chunk), h, remat)
+    elif fam == "moe":
+        if cfg.moe_every == 1:
+            h = _scan_layers(params["layers"],
+                             lambda hh, p: moe_block(p, cfg, hh, q_chunk=q_chunk), h, remat)
+        else:
+
+            def macro(hh, p):
+                for pd in _layers(p["dense"]):
+                    hh = dense_block(pd, cfg, hh, q_chunk=q_chunk)
+                return moe_block(p["moe"], cfg, hh, q_chunk=q_chunk)
+
+            h = _scan_layers(params["layers"], macro, h, remat)
+    elif fam == "ssm":
+
+        def body(hh, p):
+            out, _ = mamba_block(p, cfg, hh, chunk=ssm_chunk)
+            return out
+
+        h = _scan_layers(params["layers"], body, h, remat)
+    elif fam == "hybrid":
+        shared = params["shared_attn"]
+
+        def macro(hh, p):
+            for pm in _layers(p):
+                hh, _ = mamba_block(pm, cfg, hh, chunk=ssm_chunk)
+            hh = hh + attn.attn_train(shared["attn"], attn_dims(cfg),
+                                      rmsnorm(hh, shared["ln"], cfg.norm_eps), q_chunk=q_chunk)
+            return hh + mlp_ffn(shared["mlp"], rmsnorm(hh, shared["ln2"], cfg.norm_eps))
+
+        h = _scan_layers(params["layers"], macro, h, remat)
+        if "tail" in params:
+
+            def tail_body(hh, p):
+                out, _ = mamba_block(p, cfg, hh, chunk=ssm_chunk)
+                return out
+
+            h = _scan_layers(params["tail"], tail_body, h, remat)
+    else:
+        raise ValueError(fam)
+    return h
+
+
+def _encoder_decoder(cfg: ArchConfig, params, batch: dict, *, q_chunk=512, remat=True):
+    """The audio family: the bidirectional encoder over ``enc_embeds``,
+    then the causal decoder over the tokens with cross-attention to it."""
+    enc_h = batch["enc_embeds"].to(params["embed"].dtype)
+    bidir = attn_dims(cfg, causal=False)  # the encoder's and the cross-attention's
+
+    def enc_body(hh, p):
+        hh = hh + attn.attn_train(p["attn"], bidir, rmsnorm(hh, p["ln1"], cfg.norm_eps),
+                                  q_chunk=q_chunk)
+        return hh + mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps))
+
+    enc_h = _scan_layers(params["enc_layers"], enc_body, enc_h, remat)
+    enc_h = rmsnorm(enc_h, params["enc_norm"], cfg.norm_eps)
+
+    def dec_body(hh, p):
+        hh = hh + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(hh, p["ln1"], cfg.norm_eps),
+                                  q_chunk=q_chunk)
+        kv = attn.cross_kv(p["xattn"], bidir, enc_h)
+        hh = hh + attn.attn_cross(p["xattn"], bidir, rmsnorm(hh, p["lnx"], cfg.norm_eps), kv,
+                                  q_chunk=q_chunk)
+        return hh + mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps))
+
+    return _scan_layers(params["layers"], dec_body, embed(batch["tokens"], params["embed"]),
+                        remat)
 
 
 def forward_loss(
@@ -138,19 +348,22 @@ def forward_loss(
     ssm_chunk: int = 256,
     remat: bool = True,
 ) -> torch.Tensor:
-    """batch: tokens [B, S_txt] (+ prefix_embeds [B, P, D] for vlm).
-    Returns mean next-token NLL."""
-    if cfg.family not in DENSE_FAMILIES:
-        raise _not_ported(cfg)
+    """batch: tokens [B, S_txt] (+ prefix_embeds [B, P, D] for vlm,
+    enc_embeds [B, S_enc, D] for audio).  Returns the mean next-token NLL.
+    No MoE auxiliary loss is added: the JAX docstring promises one, but its
+    code adds none, and the port follows the code."""
     tokens = batch["tokens"]
-    h = embed(tokens, params["embed"])
-    vision = cfg.frontend == "vision" and "prefix_embeds" in batch
-    if vision:
-        pre = batch["prefix_embeds"].to(h.dtype)  # [B, P, D]
-        h = torch.cat([pre, h], dim=1)
-    h = _decoder_stack(cfg, params, h, q_chunk=q_chunk, ssm_chunk=ssm_chunk, remat=remat)
-    if vision:
-        h = h[:, batch["prefix_embeds"].shape[1]:]
+    if cfg.is_enc_dec:
+        h = _encoder_decoder(cfg, params, batch, q_chunk=q_chunk, remat=remat)
+    else:
+        h = embed(tokens, params["embed"])
+        vision = cfg.frontend == "vision" and "prefix_embeds" in batch
+        if vision:
+            pre = batch["prefix_embeds"].to(h.dtype)  # [B, P, D]
+            h = torch.cat([pre, h], dim=1)
+        h = _decoder_stack(cfg, params, h, q_chunk=q_chunk, ssm_chunk=ssm_chunk, remat=remat)
+        if vision:
+            h = h[:, batch["prefix_embeds"].shape[1]:]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     # next-token: predict t+1 from t
@@ -158,3 +371,13 @@ def forward_loss(
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     mask[:, -1] = 0.0
     return unembed_loss(h, table, labels, mask)
+
+
+# --------------------------------------------------------------------------
+# prefill / decode (serving): ROADMAP Queue 1, item 3
+# --------------------------------------------------------------------------
+
+_cache_spec = serving_not_ported("_cache_spec")
+decode_step = serving_not_ported("decode_step")
+prefill = serving_not_ported("prefill")
+prefill_encdec = serving_not_ported("prefill_encdec")

@@ -1,0 +1,250 @@
+"""Selective state-space blocks: Mamba1 (falcon-mamba) and Mamba2 (zamba2),
+the full-sequence path of ``repro.models.ssm`` (the one-token decode and
+its state init come with serving, ROADMAP Queue 1, item 3, and raise).
+
+The recurrence h_t = a_t*h_{t-1} + b_t runs as the JAX package runs it, a
+*chunked associative scan*: a loop over chunks carrying the [B, ..., N]
+state, and inside each chunk a log-depth prefix combine of the
+first-order linear-recurrence monoid
+
+    (a1, b1) . (a2, b2) = (a1*a2, a2*b1 + b2),
+
+paired as ``jax.lax.associative_scan`` pairs it (combine neighbours,
+recurse on the half, fill in the even elements), in plain tensor ops.  So
+each prefix is the same product tree as the JAX package's; XLA's CPU may
+contract ``a2*b1 + b2`` into one fused multiply-add, so the two agree to
+f32 rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, rmsnorm, serving_not_ported
+from repro_torch.streaming import prng
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMDims:
+    d_model: int
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1  # 1 = mamba1, 2 = mamba2
+    n_heads: int = 0  # mamba2: value heads; 0 -> d_inner // 64
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
+
+    @property
+    def heads(self) -> int:
+        return self.n_heads or max(1, self.d_inner // 64)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_inner // self.heads
+
+
+# --------------------------------------------------------------------------
+# linear-recurrence scan
+# --------------------------------------------------------------------------
+
+
+def _lr_combine(e1, e2):
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _fold_state(pa, h, pb):
+    """h_t = pa_t * h0 + pb_t: a chunk's prefixes applied to the carried
+    state."""
+    return pa * h[:, None] + pb
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Elements ``even[0], odd[0], even[1], odd[1], ...`` along axis 1;
+    ``even`` is as long as ``odd`` or one longer."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([pairs, even[:, n:]], dim=1) if even.shape[1] > n else pairs
+
+
+def associative_scan(elems: tuple) -> tuple:
+    """Inclusive prefix combine of ``(a, b)`` along axis 1 by
+    :func:`_lr_combine`, with ``jax.lax.associative_scan``'s pairing."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = _lr_combine(tuple(e[:, 0:-1:2] for e in elems),
+                          tuple(e[:, 1::2] for e in elems))
+    odd = associative_scan(reduced)
+    if n % 2 == 0:
+        even = _lr_combine(tuple(e[:, :-1] for e in odd), tuple(e[:, 2::2] for e in elems))
+    else:
+        even = _lr_combine(odd, tuple(e[:, 2::2] for e in elems))
+    even = tuple(torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even))
+    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+
+
+def chunked_linear_scan(a, b, h0, chunk: int):
+    """h_t = a_t * h_{t-1} + b_t along axis=1 (time).
+
+    a, b: [B, L, ...] (``a`` may broadcast against ``b`` in the trailing
+    axes); h0: [B, ...].  Returns (h_all [B, L, ...], h_last).
+    """
+    L = a.shape[1]
+    cl = min(chunk, L)
+    if L % cl != 0:
+        raise ValueError(f"sequence {L} is not a multiple of the chunk {cl}")
+    h, outs = h0, []
+    for c in range(L // cl):
+        # prefix-combine within the chunk (log-depth, vectorized)
+        pa, pb = associative_scan((a[:, c * cl:(c + 1) * cl], b[:, c * cl:(c + 1) * cl]))
+        hs = _fold_state(pa, h, pb)
+        h = hs[:, -1]
+        outs.append(hs)
+    return torch.cat(outs, dim=1), h
+
+
+def causal_conv1d(x, w, prev=None):
+    """Depthwise causal conv along time.  x: [B, L, C]; w: [K, C].
+
+    ``prev``: [B, K-1, C] left context (decode / chunk continuation).
+    Returns (y [B, L, C], new_prev [B, K-1, C]).
+    """
+    K = w.shape[0]
+    B, L, C = x.shape
+    if prev is None:
+        prev = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prev, x], dim=1)  # [B, L+K-1, C]
+    y = xp[:, 0:L] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + L] * w[i]
+    tail = xp[:, -(K - 1):] if K > 1 else x.new_zeros((B, 0, C))
+    return y, tail
+
+
+# --------------------------------------------------------------------------
+# Mamba1 (falcon-mamba) and Mamba2 (zamba2)
+# --------------------------------------------------------------------------
+
+
+def _linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in f32 for ``start == 1`` as XLA's
+    CPU compiles ``start * (1 - i/d) + stop * (i/d)`` (``d = num - 1``):
+    the division becomes a product by ``r = f32(1/d)``, ``stop * (i r)``
+    becomes ``i * f32(stop r)``, contracted with the add into one fused
+    multiply-add; ``stop`` is the last lane.  Bitwise ``jnp.linspace(1, 16,
+    H)`` at the heads of the configs (4 reduced, 112 for zamba2);
+    ``torch.linspace`` differs in 44 of 112 lanes."""
+    if start != 1.0:
+        raise ValueError("only start == 1 is XLA's folded form")
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    r = np.float32(1.0) / np.float32(num - 1)
+    i = torch.arange(num - 1, dtype=torch.float32, device=device)
+    out = prng.fma(i, float(np.float32(stop) * r), 1.0 - i * float(r))
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
+
+
+def init_mamba(key, dims: SSMDims, dtype) -> dict:
+    """The JAX package's ``init_mamba`` bit for bit, for a key or a key
+    batch (its shape leading every leaf).  ``dt_proj``, ``dt_bias``,
+    ``A_log`` and ``D`` are f32 whatever ``dtype``; ``A_log`` is XLA's
+    ``log`` (:func:`prng.xla_log`)."""
+    ks = prng.split(key, 8)
+    lead, dev = tuple(key[0].shape), key[0].device
+    D, Di, N, R = dims.d_model, dims.d_inner, dims.d_state, dims.dt_rank
+    f32 = dict(dtype=torch.float32, device=dev)
+    p = {
+        "in_proj": dense_init(ks[0], (D, 2 * Di), dtype),
+        "conv_w": dense_init(ks[1], (dims.d_conv, Di), dtype, fan_in=dims.d_conv),
+        "out_proj": dense_init(ks[2], (Di, D), dtype, fan_in=Di),
+        "D": torch.ones((*lead, Di), **f32),
+    }
+    if dims.version == 1:
+        # S4D-real init: A = -(1..N) per channel
+        a_log = prng.xla_log(torch.arange(1, N + 1, **f32)).expand(*lead, Di, N)
+        p |= {
+            "x_proj": dense_init(ks[3], (Di, R + 2 * N), dtype),
+            "dt_proj": dense_init(ks[4], (R, Di), torch.float32, fan_in=R),
+            "dt_bias": torch.zeros((*lead, Di), **f32),
+            "A_log": a_log.contiguous(),
+        }
+    else:  # mamba2: per-head scalar decay + direct B,C,dt projections
+        H = dims.heads
+        a_log = prng.xla_log(_linspace_f32(1.0, 16.0, H, dev)).expand(*lead, H)
+        p |= {
+            "bc_proj": dense_init(ks[3], (D, 2 * N), dtype),
+            "dt_proj": dense_init(ks[4], (D, H), torch.float32),
+            "dt_bias": torch.zeros((*lead, H), **f32),
+            "A_log": a_log.contiguous(),
+            "gate_norm": torch.zeros((*lead, Di), dtype=dtype, device=dev),
+            "D": torch.ones((*lead, H), **f32),
+        }
+    return p
+
+
+def _mamba1_abx(params, dims: SSMDims, xc):
+    """Per-step SSM coefficients from the conv output.  xc: [B, L, Di]."""
+    N, R = dims.d_state, dims.dt_rank
+    proj = xc @ params["x_proj"]  # [B, L, R+2N]
+    dt_r, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
+    dt = F.softplus(dt_r.to(torch.float32) @ params["dt_proj"] + params["dt_bias"])  # [B, L, Di]
+    A = -torch.exp(params["A_log"])  # [Di, N]
+    a = torch.exp(dt[..., None] * A[None, None])  # [B, L, Di, N]
+    bx = (dt * xc.to(torch.float32))[..., None] * Bc.to(torch.float32)[..., None, :]
+    return a, bx, Cc
+
+
+def mamba_forward(params, dims: SSMDims, x, state=None, conv_prev=None, chunk: int = 256):
+    """Full-sequence forward.  x: [B, L, D].
+
+    Returns (y [B, L, D], (ssm_state, conv_tail)) so prefill can hand the
+    recurrent state to decode.
+    """
+    B, L, D = x.shape
+    Di, N = dims.d_inner, dims.d_state
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xi, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)  # [B, L, Di] each
+    xc, conv_tail = causal_conv1d(xi, params["conv_w"], conv_prev)
+    xc = F.silu(xc)
+
+    if dims.version == 1:
+        a, bx, Cc = _mamba1_abx(params, dims, xc)
+        h0 = state if state is not None else torch.zeros((B, Di, N), **f32)
+        hs, h_last = chunked_linear_scan(a, bx, h0, chunk)
+        y = torch.einsum("blin,bln->bli", hs, Cc.to(torch.float32))
+        y = y + params["D"][None, None] * xc.to(torch.float32)
+        y = y.to(x.dtype) * F.silu(z)
+    else:
+        H, P = dims.heads, dims.head_dim
+        bc = x @ params["bc_proj"]
+        Bc, Cc = torch.chunk(bc.to(torch.float32), 2, dim=-1)  # [B, L, N]
+        dt = F.softplus(x.to(torch.float32) @ params["dt_proj"] + params["dt_bias"])  # [B, L, H]
+        A = -torch.exp(params["A_log"])  # [H]
+        a = torch.exp(dt * A[None, None])[..., None, None]  # [B, L, H, 1, 1]
+        xh = xc.reshape(B, L, H, P).to(torch.float32)
+        bx = (dt[..., None] * xh)[..., None] * Bc[:, :, None, None, :]  # [B, L, H, P, N]
+        h0 = state if state is not None else torch.zeros((B, H, P, N), **f32)
+        hs, h_last = chunked_linear_scan(a, bx, h0, chunk)
+        y = torch.einsum("blhpn,bln->blhp", hs, Cc)
+        y = y + params["D"][None, None, :, None] * xh
+        y = y.reshape(B, L, Di)
+        y = rmsnorm(y.to(x.dtype) * F.silu(z), params["gate_norm"], 1e-5)
+
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out, (h_last, conv_tail)
+
+
+mamba_decode = serving_not_ported("mamba_decode")
+init_ssm_state = serving_not_ported("init_ssm_state")

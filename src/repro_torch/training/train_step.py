@@ -5,12 +5,14 @@ returns ``step(params, opt, batch) -> (params, opt, stats)`` — forward loss
 (rematerialised layers), backward, global-norm clip, AdamW.  ``stats``
 carries the scalars the WCRDT metric lattice folds (loss, tokens,
 grad-norm), as 0-d f32 tensors on the parameters' device.  The serve and
-prefill steps are ROADMAP Queue 1, item 3.
+prefill steps are ROADMAP Queue 1, item 3, and raise.
 
 Every op of a step on the card is deterministic run to run (the embedding's
 backward sums repeated tokens in a fixed order, the xent picks its gold
-logit elementwise, GQA expands kv heads by a broadcast, and there are no
-atomics), so a run restored from a checkpoint continues bit for bit.
+logit elementwise, GQA and cross-attention expand kv heads by a broadcast,
+the MoE dispatch and combine gather rows both ways, the scan is elementwise
+ops, and there are no atomics), so a run restored from a checkpoint
+continues bit for bit, for every family.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import serving_not_ported, tree_leaves, tree_map
 from repro_torch.training.optimizer import AdamWState, adamw_update
 
 
@@ -76,3 +78,7 @@ def _unflatten(tree, it):
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], it) for k in sorted(tree)}
     return next(it)
+
+
+make_serve_step = serving_not_ported("make_serve_step")
+make_prefill_step = serving_not_ported("make_prefill_step")

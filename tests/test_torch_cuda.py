@@ -796,3 +796,109 @@ def test_crash_and_restore_on_card_is_bitwise(dev, tmp_path):
     for a, b in zip(tree_leaves(p1) + tree_leaves(o1.mu) + tree_leaves(o1.nu),
                     tree_leaves(p3) + tree_leaves(o3.mu) + tree_leaves(o3.nu)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the moe, ssm, hybrid and audio families' training path on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["llama4_scout_17b_a16e", "qwen3_moe_235b_a22b", "falcon_mamba_7b", "zamba2_7b",
+                "seamless_m4t_large_v2"]
+
+
+def _family_step(cfg, d, lr):
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.streaming import prng
+    from repro_torch.training import adamw_init, make_train_step
+
+    batch = synthetic_batch(0, 0, 2, 64, cfg.vocab, d)
+    if cfg.family == "audio":
+        g = torch.Generator().manual_seed(0)
+        batch["enc_embeds"] = torch.randn((2, 64, cfg.d_model), generator=g).to(d)
+    p = init_params(cfg, prng.prng_key(0, d), dtype=torch.float32)
+    step = make_train_step(cfg, q_chunk=32, ssm_chunk=16, lr=lr)
+    return p, step, batch
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_card_matches_cpu(dev, arch):
+    """A reduced step of each new family on the card against the CPU's,
+    f32 with TF32 off, at tests/test_torch_families_step.py's tolerances:
+    parameters drawn bitwise, loss to rtol 1e-5, grad norm 1e-5 (5e-5 for
+    the hybrid), moments to 1e-4 of each leaf's largest (at least 1e-8 of
+    the tree's), parameters to 0.05 lr where the first moment stands above
+    1e-3 of its leaf's largest and 2.2 lr elsewhere."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import adamw_init
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, lr = get_config(arch).reduced(), 1e-3
+    out = {}
+    for d in ("cpu", dev):
+        p, step, batch = _family_step(cfg, d, lr)
+        out[str(d)] = (p, *step(p, adamw_init(p), batch))
+    (p0c, pc, oc, sc), (p0g, pg, og, sg) = out["cpu"], out[str(dev)]
+    for a, b in zip(tree_leaves(p0g), tree_leaves(p0c)):
+        assert torch.equal(a.cpu(), b)
+    np.testing.assert_allclose(float(sg["loss"]), float(sc["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(sg["grad_norm"]), float(sc["grad_norm"]),
+                               rtol=5e-5 if cfg.family == "hybrid" else 1e-5)
+    for kind, a_, b_ in (("mu", og.mu, oc.mu), ("nu", og.nu, oc.nu)):
+        top = max(float(b.abs().max()) for b in tree_leaves(b_))
+        for a, b in zip(tree_leaves(a_), tree_leaves(b_)):
+            atol = 1e-4 * max(float(b.abs().max()), 1e-4 * top)
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=atol,
+                                       err_msg=kind)
+    for a, b, m in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(oc.mu)):
+        a, sure = a.cpu(), m.abs() > 1e-3 * m.abs().max()
+        np.testing.assert_allclose(a[sure].numpy(), b[sure].numpy(), rtol=0, atol=0.05 * lr)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2.2 * lr)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_repeats_bitwise_on_card(dev, arch):
+    """Two steps on the card from the same state give the same parameters
+    and moments bit for bit: no step of the scan, the MoE dispatch and
+    combine or cross-attention adds by atomics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import adamw_init
+
+    cfg = get_config(arch).reduced()
+    p, step, batch = _family_step(cfg, dev, 1e-3)
+    (p1, o1, _), (p2, o2, _) = (step(p, adamw_init(p), batch) for _ in range(2))
+    for a, b in zip(tree_leaves(p1) + tree_leaves(o1.mu) + tree_leaves(o1.nu),
+                    tree_leaves(p2) + tree_leaves(o2.mu) + tree_leaves(o2.nu)):
+        assert torch.equal(a, b)
+
+
+def test_moe_gather_rows_backward_is_bitwise_on_card(dev):
+    """The MoE layer's gather function on the card: its values equal the
+    CPU's, and two backward runs give the same gradients bit for bit (the
+    backward gathers through the inverse map and adds a row's terms in
+    slot order)."""
+    from repro_torch.models import moe
+    from repro_torch.streaming import prng
+
+    dims = moe.MoEDims(d_model=64, n_experts=16, top_k=4, d_ff=32, shared_expert=True,
+                       shared_d_ff=48)
+    p = moe.init_moe(prng.prng_key(0, dev), dims, torch.float32)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 512, 64), generator=g).to(dev)
+    gy = torch.randn((2, 512, 64), generator=g).to(dev)
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items() if k != "shared"}
+        xr = x.clone().requires_grad_(True)
+        moe.moe_ffn(dict(leaves, shared=p["shared"]), dims, xr).backward(gy)
+        grads.append([xr.grad] + [leaves[k].grad for k in sorted(leaves)])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    r = moe.route(torch.softmax(x.reshape(-1, 64) @ p["router"], -1), dims,
+                  moe.capacity(dims, 1024))
+    src = torch.randn((1024, 8), generator=g).to(dev)
+    out = moe.gather_rows(src, r["tok_of_slot"], r["slot_of_token"])
+    torch.testing.assert_close(out.cpu(), torch.cat([src, src[:1] * 0])[r["tok_of_slot"]].cpu(),
+                               rtol=0, atol=0)

@@ -3,7 +3,8 @@ against the JAX package's, on the CPU in f32.
 
 The same seed draws the same parameters on both sides: ``init_params`` is
 held bitwise, leaf by leaf, for every dense and vlm architecture at its
-``reduced()`` size.  The layers and the loss are held to ``rtol=1e-5`` (the
+``reduced()`` size (``tests/test_torch_families.py`` holds every other
+family).  The layers and the loss are held to ``rtol=1e-5`` (the
 f32 matrix products, sums and ``sin``/``cos``/``rsqrt`` of XLA's CPU and of
 torch's round differently in the last bits; 1e-5 is ``tests/test_kernels.py``'s
 float tolerance), except ``rope_freqs``, which goes through glibc's
@@ -89,7 +90,9 @@ def test_init_params_bitwise(arch):
 
 def test_init_params_gqa_and_bf16():
     """Two kv heads under four query heads (the wk / wv widths), and the
-    JAX default dtype, bf16: both bitwise."""
+    JAX default dtype, bf16: both bitwise.  Under bf16 the MoE router and
+    Mamba's ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` stay f32, as in
+    the JAX package."""
     cfg = _gqa(configs.get_config("minitron_4b").reduced())
     jcfg = _gqa(jconfigs.get_config("minitron_4b").reduced())
     for jdt, pdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
@@ -101,15 +104,21 @@ def test_init_params_gqa_and_bf16():
                                                  else torch.int32).numpy(),
                                           np.asarray(a).view(np.int16 if jdt == jnp.bfloat16
                                                              else np.int32))
-
-
-def test_other_families_are_not_ported_yet():
-    for arch in configs.list_archs():
-        cfg = configs.get_config(arch).reduced()
-        if cfg.family in ("dense", "vlm"):
-            continue
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            init_params(cfg, prng.prng_key(0), dtype=torch.float32)
+    f32_leaves = {"qwen3_moe_235b_a22b": lambda p: [p["layers"]["moe"]["router"]],
+                  "llama4_scout_17b_a16e": lambda p: [p["layers"]["moe"]["moe"]["router"]],
+                  "falcon_mamba_7b": lambda p: [p["layers"]["mamba"][k] for k in
+                                                ("dt_proj", "dt_bias", "A_log", "D")],
+                  "zamba2_7b": lambda p: [p[s]["mamba"][k] for s in ("layers", "tail") for k in
+                                          ("dt_proj", "dt_bias", "A_log", "D")]}
+    for arch, leaves in f32_leaves.items():
+        p = init_params(configs.get_config(arch).reduced(), prng.prng_key(1),
+                        dtype=torch.bfloat16)
+        jp = jinit_params(jconfigs.get_config(arch).reduced(), jax.random.PRNGKey(1),
+                          dtype=jnp.bfloat16)
+        for a, b in zip(leaves(p), leaves(jp)):
+            assert a.dtype == torch.float32 and b.dtype == jnp.float32, arch
+            np.testing.assert_array_equal(a.numpy().view(np.int32), np.asarray(b).view(np.int32))
+        assert p["embed"].dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
