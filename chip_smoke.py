@@ -121,8 +121,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reference on 64 tokens as routed at init and under a router that
    overflows its first k experts (dropped tokens get zero, or the shared
    expert alone).
-9. Print events/s and sync bytes per round per run, with the card.
-10. A JSON line ``{"kernels": [...]}``, then the last line
+9. The serving path of every family (``run_serving``): prefill, decode
+   against KV and SSM caches, the encoder-decoder prefill, through
+   ``make_prefill_step`` and ``make_serve_step``; no kernel of the port
+   lies on it, and none may be launched.  (a) All ten architectures at
+   ``reduced()``, f32, TF32 off: parameters drawn on the card bitwise the
+   CPU's, a prefill (a stub prefix for vlm, frames for audio) and 8 serve
+   steps held card to CPU, logits and every cache leaf, at the CPU tests'
+   tolerances; a second card run bitwise the first; the last prompt token
+   decoded against a cache prefilled without it against the prefill's
+   logits.  (b) minitron-4b (8 x 2,048 tokens), falcon-mamba-7b (4 x
+   2,048), zamba2-7b (1 x 2,048) and seamless-m4t-large-v2 (8 x 4,096
+   frames + 1,024 tokens) whole, at published widths and full depth, in
+   bf16: init s, prefill s and prompt tokens/s, then 128 greedy decode
+   steps into a ``_cache_spec`` cache (median step ms after the first,
+   generated tokens/s), peak memory; a second run's greedy tokens, logits
+   and cache bitwise the first's, with a ``torch.profiler`` pass over 16
+   of its steps (device idle share, device events and torch ops a step,
+   the largest device costs); finite logits; the last prompt token of one
+   sequence decoded against a prefill without it, its gap to the
+   prefill's logits reported in bf16 and held in f32 (the weights cast
+   up).  (c) ``_moe_ffn_decode`` on 128 tokens at qwen3-moe's
+   and llama4-scout's widths, bf16, against the per-token reference of 8c,
+   routed and overflowed, timed beside its bytes bound.
+10. Print events/s and sync bytes per round per run, with the card.
+11. A JSON line ``{"kernels": [...]}``, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
@@ -151,6 +174,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 # the full-size deployment (see the docstring)
 S = 16
@@ -219,6 +243,33 @@ FULL_WIDTH = (
 FULL_WARMUP, FULL_STEPS = 1, 3
 TRAIN_METRIC_WORKERS = 4  # launch/train.py's --metric-workers default
 MOE_LAYER_ARCHS, MOE_TOKENS, MOE_SAMPLED = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e"), 4_096, 64
+# phase 9, serving: every architecture at reduced(), a prompt of 32 tokens
+# and 8 serve steps (9a); four whole models at published widths and full
+# depth in bf16, as (arch, batch, prompt tokens, encoder frames, cache
+# slots): the prefill_32k and decode_32k cells (configs/base.py) cut in
+# batch and length to one card's memory, the cache holding the prompt and
+# the 128 generated tokens (9b); the decode-time MoE FFN at decode_32k's
+# batch (9c)
+SERVE_PROMPT, SERVE_STEPS = 32, 8
+SERVE_FULL = (
+    ("minitron_4b", 8, 2_048, 0, 2_176),
+    ("falcon_mamba_7b", 4, 2_048, 0, None),
+    ("zamba2_7b", 1, 2_048, 0, 2_176),
+    ("seamless_m4t_large_v2", 8, 1_024, 4_096, 1_152),
+)
+SERVE_DECODE, SERVE_PROFILE = 128, 16  # greedy steps (the first a warm-up); profiled
+SERVE_MOE_TOKENS = 128
+# 9a's tolerances, tests/test_torch_serve_families.py's (of the largest
+# magnitude): the hybrid's scan rounding carried through its gated RMSNorms
+SERVE_TOL = {"hybrid": 1e-4}
+# 9b: the decode of the last prompt token against the prefill's logits,
+# relative L2, held with the bf16 weights cast to f32.  At random init and
+# full depth the models amplify rounding: in bf16 two prefills that differ
+# in their chunks alone move zamba2-7b's logits by 0.71 and
+# falcon-mamba-7b's by 0.10 (scripts/serve_gaps.py), so the bf16 gap is
+# reported, not held; in f32 the largest gap is zamba2's, 9.9e-3-1.2e-2,
+# where a wrong cache gives unrelated logits, about 1.4
+SERVE_F32_NEXT = 2e-2
 # card against CPU at reduced(): tests/test_torch_families_step.py's
 # tolerances (the hybrid's grad norm carries the scan's rounding through
 # Mamba2's gated RMSNorm)
@@ -1274,7 +1325,6 @@ def profile_run(name: str, fn, batches: int = 64) -> dict:
     """Device busy share of one run of ``fn`` (after a warm one), from a
     ``torch.profiler`` trace: the sum of device-side event times (kernels,
     copies, fills; one stream, so they do not overlap) over the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1284,22 +1334,45 @@ def profile_run(name: str, fn, batches: int = 64) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    rows = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows)
-    aten = [e for e in prof.events() if e.name.startswith("aten::") and e.cpu_parent is None]
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    # the torch ops whose own kernels take the device time, by name
-    by_op = sorted((e for e in events if e.device_type == DeviceType.CPU
-                    and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
-    row = {"profile": name, "batches": batches, "wall_us": wall_us, "device_busy_us": busy,
-           "device_idle_share": 1 - busy / wall_us if busy else None,
-           "device_events_per_batch": sum(e.count for e in rows) / batches,
-           "aten_ops_per_batch": len(aten) / batches,
-           "top_kernels_us": [[e.key[:90], e.self_device_time_total] for e in top],
-           "top_ops_device_us": [[e.key, e.self_device_time_total, e.count] for e in by_op[:10]]}
+    row = profile_row(name, prof, wall_us, batches)
     log(json.dumps(row))
     return row
+
+
+def profile_row(name: str, prof, wall_us: float, batches: int) -> dict:
+    """A finished ``torch.profiler`` trace of ``batches`` batches (steps) in
+    ``wall_us``: device busy and idle share, device events and top-level
+    torch ops a batch, the largest device costs by kernel and by the torch
+    op that launched them.  Read from the profiler's raw events: building
+    its function events takes some 30 s for 16 decode steps of zamba2-7b's
+    8,500 ops."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    aten = sorted((e for e in events if e.device_type() == DeviceType.CPU
+                   and e.name().startswith("aten::")), key=lambda e: (e.start_ns(), -e.end_ns()))
+    busy = sum(e.duration_ns() for e in device) / 1e3
+    by_kernel, by_op, calls = Counter(), Counter(), Counter(e.name() for e in aten)
+    op_of = {e.correlation_id(): e.name() for e in aten if e.linked_correlation_id() == 0}
+    for e in device:
+        by_kernel[e.name()[:90]] += e.duration_ns() / 1e3
+        op = op_of.get(e.linked_correlation_id())
+        if op is not None:
+            by_op[op] += e.duration_ns() / 1e3
+    top_level, end = 0, -1  # aten ops inside no other aten op
+    for e in aten:
+        if e.start_ns() >= end:
+            top_level += 1
+        end = max(end, e.end_ns())
+    return {"profile": name, "batches": batches, "wall_us": wall_us, "device_busy_us": busy,
+            "device_idle_share": 1 - busy / wall_us if busy else None,
+            "device_events_per_batch": len(device) / batches,
+            "aten_ops_per_batch": top_level / batches,
+            "top_kernels_us": [[k, v] for k, v in by_kernel.most_common(6)],
+            "top_ops_device_us": [[k, v, calls[k]] for k, v in by_op.most_common(10)]}
 
 
 def profile_share(dev) -> None:
@@ -2405,7 +2478,7 @@ def route_reference(pm, dims, xf, C: int) -> tuple:
     (``torch.topk``), gates renormalised over them; a pair is kept when
     fewer than ``C`` lower tokens chose its expert (a cumulative count, no
     sort).  Returns (experts [T, K], gates [T, K], kept [T, K])."""
-    probs = torch.softmax(xf @ pm["router"], dim=-1)
+    probs = torch.softmax(xf.float() @ pm["router"], dim=-1)
     vals, idx = torch.topk(probs, dims.top_k, dim=-1)
     gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
     chose = torch.zeros(xf.shape[0], dims.n_experts, dtype=torch.int64, device=xf.device)
@@ -2437,17 +2510,19 @@ def moe_reference(pm, dims, xf, routing, tokens) -> torch.Tensor:
     return torch.stack(out)
 
 
-def check_moe_outputs(name: str, pm, dims, xf, C: int) -> dict:
-    """``moe_ffn`` on ``xf [T, D]`` against :func:`moe_reference` on
-    ``MOE_SAMPLED`` tokens (up to half of them tokens with a dropped pair),
-    to 1e-4 of the reference's largest magnitude (independent f32 sums);
-    a token whose every pair dropped gets exactly the shared expert's
-    output (the same product on all T tokens), or zero."""
+def check_moe_outputs(name: str, pm, dims, xf, C: int, y=None, tol: float = 1e-4) -> dict:
+    """``y``, the MoE FFN of ``xf [T, D]`` (``moe_ffn`` by default),
+    against :func:`moe_reference` on ``MOE_SAMPLED`` tokens (up to half of
+    them tokens with a dropped pair), to ``tol`` of the reference's largest
+    magnitude (1e-4 for independent f32 sums); a token whose every pair
+    dropped gets exactly the shared expert's output (the same product on
+    all T tokens), or zero."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.mlp import mlp_ffn
 
     T = xf.shape[0]
-    y = moe_lib.moe_ffn(pm, dims, xf[None])[0]
+    if y is None:
+        y = moe_lib.moe_ffn(pm, dims, xf[None])[0]
     routing = route_reference(pm, dims, xf, C)
     kept = routing[2]
     g = torch.Generator().manual_seed(SEED)
@@ -2457,7 +2532,7 @@ def check_moe_outputs(name: str, pm, dims, xf, C: int) -> dict:
     tokens = [int(t) for t in torch.cat([some, rest])]
     ref = moe_reference(pm, dims, xf, routing, tokens)
     err = float((y[tokens] - ref).abs().max())
-    if not err <= 1e-4 * float(ref.abs().max()):
+    if not err <= tol * float(ref.abs().max()):
         raise AssertionError(f"{name}: moe_ffn against the per-token reference: {err}")
     none_kept = torch.nonzero(~kept.any(-1)).flatten()
     if len(none_kept):
@@ -2629,6 +2704,335 @@ def run_other_families(dev, card: str) -> tuple[dict, dict]:
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving path of every family
+# ---------------------------------------------------------------------------
+
+
+def serve_reduced(cfg, d, next_token: bool = False):
+    """9a on device ``d``: parameters from ``SEED`` (f32), the prefill step
+    over 2 x ``SERVE_PROMPT`` tokens (4 stub patch embeddings before them
+    for vlm, ``SERVE_PROMPT`` frames for audio), its cache grown by
+    ``SERVE_STEPS``, then that many serve steps of the next tokens, drawn
+    on the host from ``SEED``.  Returns (parameters, every step's logits,
+    the final cache).  With ``next_token`` the prefill without the last
+    prompt token and a decode of it instead: (its logits, the full
+    prefill's)."""
+    from repro_torch.models import lm
+    from repro_torch.streaming import prng
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    S_, n = SERVE_PROMPT, SERVE_STEPS
+    p = lm.init_params(cfg, prng.prng_key(SEED, d), dtype=torch.float32)
+    g = np.random.default_rng(SEED)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (2, S_ + n))).to(d)
+    P = 4 if cfg.family == "vlm" else 0
+    extra = torch.from_numpy(g.standard_normal((2, S_ if cfg.is_enc_dec else P, cfg.d_model))
+                             .astype(np.float32)).to(d)
+
+    def prefill(t, ssm_chunk=8):
+        step = make_prefill_step(cfg, q_chunk=16, ssm_chunk=ssm_chunk)
+        if cfg.is_enc_dec:
+            return step(p, extra, t)
+        return (*step(p, t, extra if P else None), None)
+
+    serve = make_serve_step(cfg)
+    if next_token:
+        want = prefill(toks[:, :S_])[0]
+        _, cache, enc_kv = prefill(toks[:, :S_ - 1], ssm_chunk=S_ - 1)
+        got, _ = serve(p, lm.pad_cache(cache, P + S_), toks[:, S_ - 1:S_], P + S_ - 1, enc_kv)
+        return got, want
+    logits, cache, enc_kv = prefill(toks[:, :S_])
+    cache = lm.pad_cache(cache, P + S_ + n)
+    out = [logits]
+    for i in range(n):
+        logits, cache = serve(p, cache, toks[:, S_ + i:S_ + i + 1], P + S_ + i, enc_kv)
+        out.append(logits)
+    return p, out, cache
+
+
+def serve_parity(dev, card: str) -> None:
+    """9a: every architecture at ``reduced()``, f32, TF32 off: the
+    parameters drawn on the card bitwise the CPU's; every step's logits and
+    every cache leaf of :func:`serve_reduced` card against CPU at
+    tests/test_torch_serve_families.py's tolerances (``SERVE_TOL``); a
+    second card run bitwise the first; the last prompt token decoded
+    against a cache prefilled without it against the prefill's logits, on
+    the card, to the same tolerance (a MoE at a capacity with a slot for
+    every token, so that neither pass drops a pair)."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.common import tree_leaves
+
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        tol = SERVE_TOL.get(cfg.family, 1e-5)
+        t0 = time.perf_counter()
+        pc, lc, cc = serve_reduced(cfg, "cpu")
+        t1 = time.perf_counter()
+        pg, lg, cg = serve_reduced(cfg, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{arch}: parameters drawn on the card differ from the CPU's")
+        gap = 0.0
+        for a, b in zip(lg + tree_leaves(cg), lc + tree_leaves(cc)):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{arch}: card {a.shape} {a.dtype}, CPU {b.shape} {b.dtype}")
+            share = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            if not share <= tol:
+                raise AssertionError(f"{arch}: serving card against CPU at {share} of the largest")
+            gap = max(gap, share)
+        _, l2, c2 = serve_reduced(cfg, dev)
+        for a, b in zip(lg + tree_leaves(cg), l2 + tree_leaves(c2)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{arch}: a second card serving run differs")
+        no_drop = (dataclasses.replace(cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+                   if cfg.family == "moe" else cfg)
+        got, want = serve_reduced(no_drop, dev, next_token=True)
+        nt = float((got - want).abs().max()) / float(want.abs().max())
+        if not nt <= tol:
+            raise AssertionError(f"{arch}: decode of the last prompt token at {nt} of the "
+                                 "prefill's logits")
+        log(json.dumps({"serve_parity": arch, "family": cfg.family, "init_bitwise": True,
+                        "repeat_bitwise": True, "steps": SERVE_STEPS,
+                        "card_cpu_gap_of_largest": gap, "tol": tol, "next_token_gap": nt,
+                        "cpu_s": t1 - t0, "card_s": t2 - t1, "card": card}))
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    return max(k for k in range(1, min(n, cap) + 1) if n % k == 0)
+
+
+def next_token_gap(cfg, params, prompt, enc, want=None) -> float:
+    """Relative L2 distance of the decode of the one sequence ``prompt``'s
+    last token, against a cache prefilled without it (one query chunk, the
+    encoder's frames setting it for audio, and an SSM chunk that divides the
+    shorter prompt), to ``want``: the prefill's logits over the whole
+    prompt (computed here when not given)."""
+    from repro_torch.models import lm
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    S_ = prompt.shape[1]
+    frames = 0 if enc is None else enc.shape[1]
+
+    def prefill(toks, **kw):
+        step = make_prefill_step(cfg, **kw)
+        return step(params, enc, toks) if enc is not None else (*step(params, toks), None)
+
+    if want is None:
+        want = prefill(prompt)[0]
+    _, cache, enc_kv = prefill(prompt[:, :S_ - 1], q_chunk=max(S_ - 1, frames),
+                               ssm_chunk=largest_divisor(S_ - 1, 256))
+    got, _ = make_serve_step(cfg)(params, lm.pad_cache(cache, S_), prompt[:, S_ - 1:], S_ - 1,
+                                  enc_kv)
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def serve_full(arch: str, B_: int, S_: int, frames: int, T_, dev, card: str) -> dict:
+    """9b: ``arch`` whole (published widths, full depth) in bf16: init;
+    the prefill step over ``B_`` prompts of ``S_`` tokens (and ``frames``
+    encoder frames), its KV grown to a ``_cache_spec`` cache of ``T_``
+    slots; ``SERVE_DECODE`` greedy decode steps from the prefill's argmax,
+    each timed to a device synchronise (the first is the warm-up).  Then
+    the same again, its greedy tokens, last logits and cache bitwise the
+    first run's, with ``SERVE_PROFILE`` of its steps under
+    ``torch.profiler`` (no synchronise between them).  Then sequence 0's
+    last prompt token decoded against a cache prefilled without it
+    (:func:`next_token_gap`): in bf16 against the batched prefill's
+    logits, reported; with the weights cast to f32, held to
+    ``SERVE_F32_NEXT``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.streaming import prng
+    from repro_torch.training import make_prefill_step, make_serve_step
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, prng.prng_key(SEED, dev), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    g = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(g.integers(0, cfg.vocab, (B_, S_))).to(dev)
+    enc = None
+    if frames:
+        enc = torch.randn((B_, frames, cfg.d_model),
+                          generator=torch.Generator().manual_seed(SEED)).to(dev, torch.bfloat16)
+    prefill_step, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    spec = lm._cache_spec(cfg, B_, T_ or 1, torch.bfloat16, "meta")
+
+    def run(profiled: bool) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if enc is not None:
+            logits, cache, enc_kv = prefill_step(params, enc, prompt)
+        else:
+            (logits, cache), enc_kv = prefill_step(params, prompt), None
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first = logits
+        if T_:
+            cache = lm.pad_cache(cache, T_)
+        if [tuple(x.shape) for x in tree_leaves(cache)] != [tuple(x.shape)
+                                                            for x in tree_leaves(spec)]:
+            raise AssertionError(f"{cfg.name}: the cache is not _cache_spec's layout")
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks, secs, prof = [tok], [], None
+        for i in range(SERVE_DECODE):
+            if profiled and i == SERVE_DECODE - SERVE_PROFILE:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.start()
+                tp = time.perf_counter()
+            if not profiled:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = serve(params, cache, tok, S_ + i, enc_kv)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            if not profiled:
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out = {"prefill_s": prefill_s, "secs": secs, "tokens": torch.cat(toks, 1),
+               "logits": logits, "first": first, "cache": cache, "enc_kv": enc_kv}
+        if profiled:
+            wall_us = (time.perf_counter() - tp) * 1e6
+            prof.stop()
+            out["profile"] = profile_row(f"{cfg.name} decode", prof, wall_us, SERVE_PROFILE)
+        return out
+
+    a = run(False)
+    peak = torch.cuda.max_memory_allocated()  # since the parameters were drawn
+    finite = bool(torch.isfinite(a["first"]).all()) and bool(torch.isfinite(a["logits"]).all())
+    if not finite:
+        raise AssertionError(f"{cfg.name}: logits not finite")
+    b = run(True)
+    if not torch.equal(a["tokens"], b["tokens"]) or not torch.equal(a["logits"], b["logits"]):
+        raise AssertionError(f"{cfg.name}: a second serving run generated other tokens")
+    for x, y in zip(tree_leaves(a["cache"]), tree_leaves(b["cache"])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{cfg.name}: a second serving run left another cache")
+    prof, prefill_s2 = b["profile"], b["prefill_s"]
+    del b
+    a["cache"] = a["enc_kv"] = None
+    # sequence 0: the decode of its last prompt token in bf16, reported; then
+    # the same model with its bf16 weights in f32, where it is held
+    gap = next_token_gap(cfg, params, prompt[:1], None if enc is None else enc[:1],
+                         a["first"][:1])
+    params = tree_map(lambda x: x.float(), params)
+    gap32 = next_token_gap(cfg, params, prompt[:1], None if enc is None else enc[:1].float())
+    if not gap32 <= SERVE_F32_NEXT:
+        raise AssertionError(f"{cfg.name}: in f32 the last prompt token's decode at relative L2 "
+                             f"{gap32} of the prefill's logits")
+    med = float(np.median(a["secs"][1:]))
+    r = {"serve": f"{cfg.name} whole, published widths, bf16", "layers": cfg.n_layers,
+         "params": n_params, "batch": B_, "prompt_tokens": S_, "encoder_frames": frames,
+         "cache_slots": T_, "cut": f"none beyond the cells': batch {B_} of prefill_32k's 32 "
+         f"and decode_32k's 128, a prompt of {S_} of their 32,768 tokens", "init_s": init_s,
+         "init_peak_gb": init_peak / 1e9, "prefill_s": a["prefill_s"],
+         "prefill_s_second_run": prefill_s2,
+         "prompt_tokens_per_s": B_ * S_ / a["prefill_s"],
+         "decode_steps": SERVE_DECODE, "median_decode_ms": med * 1e3,
+         "decode_ms_min_max": [min(a["secs"][1:]) * 1e3, max(a["secs"][1:]) * 1e3],
+         "first_step_ms": a["secs"][0] * 1e3, "generated_tokens_per_s": B_ / med,
+         "max_memory_allocated_gb": peak / 1e9, "logits_finite": finite,
+         "repeat_bitwise": True, "next_token_rel_l2_bf16": gap, "next_token_rel_l2_f32": gap32,
+         "profile": {k: prof[k] for k in ("wall_us", "device_busy_us", "device_idle_share",
+                                          "device_events_per_batch", "aten_ops_per_batch")},
+         "profile_top_kernels_us": prof["top_kernels_us"][:4],
+         "profile_top_ops_device_us": prof["top_ops_device_us"][:4], "card": card}
+    del a, params
+    torch.cuda.empty_cache()
+    log(json.dumps(r))
+    return r
+
+
+def moe_decode_run(arch: str, dev, card: str) -> dict:
+    """9c: ``_moe_ffn_decode`` at ``arch``'s published widths on
+    ``SERVE_MOE_TOKENS`` tokens of one position each, bf16: against the
+    per-token reference of 8c (:func:`check_moe_outputs`, to ``(K + 2)
+    2^-8`` of its largest magnitude: each of a token's K gated outputs and
+    its shared expert's rounds to bf16 once, and so do the K - 1 adds, where
+    the reference adds in f32) as routed at init and under a router that
+    overflows its first K experts; timed, beside the bytes bound of the
+    experts this batch routes to."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.streaming import prng
+
+    cfg = get_config(arch)
+    dims = lm.moe_dims(cfg)
+    T_ = SERVE_MOE_TOKENS
+    C = moe_lib.capacity(dims, T_)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pm = moe_lib.init_moe(prng.prng_key(SEED, dev), dims, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    x = torch.randn((T_, 1, cfg.d_model), generator=torch.Generator().manual_seed(SEED))
+    x = x.to(dev, torch.bfloat16)
+    tol = (dims.top_k + 2) * 2.0 ** -8
+    call = lambda: moe_lib._moe_ffn_decode(pm, dims, x)  # noqa: E731
+    with torch.no_grad():
+        routed = check_moe_outputs(f"{cfg.name} _moe_ffn_decode", pm, dims, x[:, 0], C,
+                                   y=call()[:, 0], tol=tol)
+        biased = dict(pm, router=pm["router"].clone())
+        biased["router"][:, :dims.top_k] += 40.0 / cfg.d_model
+        xa = x.abs()
+        overflow = check_moe_outputs(f"{cfg.name} _moe_ffn_decode overflowed", biased, dims,
+                                     xa[:, 0], C,
+                                     y=moe_lib._moe_ffn_decode(biased, dims, xa)[:, 0], tol=tol)
+        if not overflow["tokens_all_dropped"] >= T_ - C:
+            raise AssertionError(f"{cfg.name}: the biased router dropped {overflow}")
+        ms = cuda_ms(call, iters=10)
+        r = moe_lib.route(torch.softmax(x[:, 0].float() @ pm["router"], -1), dims, C)
+    used = int((r["tok_of_slot"].reshape(dims.n_experts, C) < T_).any(1).sum())
+    per_expert = nbytes(pm["w_gate"][0], pm["w_up"][0], pm["w_down"][0])
+    moved = (used * per_expert + nbytes(pm["router"], x, x)
+             + (nbytes(*pm["shared"].values()) if dims.shared_expert else 0))
+    flops = 2 * 3 * T_ * dims.top_k * cfg.d_model * dims.d_ff + (
+        2 * 3 * T_ * cfg.d_model * dims.shared_d_ff if dims.shared_expert else 0)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_OPS_PER_S * 1e3
+    row = {"moe_decode": f"{cfg.name} _moe_ffn_decode, published widths, bf16", "tokens": T_,
+           "d_model": cfg.d_model, "experts": dims.n_experts, "top_k": dims.top_k,
+           "d_ff": dims.d_ff, "shared_expert": dims.shared_expert, "capacity": C,
+           "experts_routed_to": used, "init_s": init_s, "ms": ms, "bytes": moved,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+           "operations", "tol": tol, "routed": routed, "overflowed": overflow, "card": card}
+    del pm, biased, x, xa
+    torch.cuda.empty_cache()
+    log(json.dumps(row))
+    return row
+
+
+def run_serving(dev, card: str) -> None:
+    """Phase 9: 9a :func:`serve_parity`; 9b :func:`serve_full` for each of
+    ``SERVE_FULL`` (the phase's main path: no kernel of the port lies on
+    it, and none may be launched); 9c :func:`moe_decode_run` for each of
+    ``MOE_LAYER_ARCHS``."""
+    t0 = time.perf_counter()
+    serve_parity(dev, card)
+    log(f"9a done in {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    for arch, B_, S_, frames, T_ in SERVE_FULL:
+        serve_full(arch, B_, S_, frames, T_, dev, card)
+    check_launches("serving", set())
+    log(f"9b done in {time.perf_counter() - t0:.1f} s")
+    for arch in MOE_LAYER_ARCHS:
+        moe_decode_run(arch, dev, card)
+    log(f"9c done in {time.perf_counter() - t0:.1f} s")
+
+
 def same_state(a, b, what: str) -> None:
     from repro_torch.convert import wstate_to_numpy
 
@@ -2745,7 +3149,11 @@ def main() -> int:
         kernel_rows[k]["other_families_launches"] = counts[k]
     log(f"other families done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== phase 9: throughput {card}")
+    log(f"== phase 9: the serving path of every family {card}")
+    run_serving(dev, card)
+    log(f"serving done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 10: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")

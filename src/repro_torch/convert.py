@@ -111,6 +111,14 @@ def params_from_numpy(tree, device="cpu"):
     return _tensor(tree, device)
 
 
+def cache_from_numpy(tree, device="cpu"):
+    """A serving cache or an encoder-decoder's ``enc_kv`` (nested dicts of
+    numpy arrays in the JAX package's ``_cache_spec`` / ``prefill``
+    layout) as the port's tensors, leaf by leaf: :func:`params_from_numpy`
+    under the name of what it carries."""
+    return params_from_numpy(tree, device)
+
+
 def adamw_from_numpy(opt: dict, device="cpu") -> AdamWState:
     """An AdamW state given as ``{"step", "mu", "nu"}`` numpy trees (the
     fields of the JAX package's ``AdamWState``) as the port's."""

@@ -1,6 +1,23 @@
-"""The LM stack (port of ``repro.models``): the training path of every
-family (serving is ROADMAP Queue 1, item 3)."""
+"""The LM stack (port of ``repro.models``): init, train-forward, prefill
+and decode of every family."""
 from repro_torch.models.common import shard
-from repro_torch.models.lm import forward_loss, init_params
+from repro_torch.models.lm import (
+    _cache_spec as cache_spec,
+    decode_step,
+    forward_loss,
+    init_params,
+    pad_cache,
+    prefill,
+    prefill_encdec,
+)
 
-__all__ = ["forward_loss", "init_params", "shard"]
+__all__ = [
+    "decode_step",
+    "forward_loss",
+    "init_params",
+    "prefill",
+    "prefill_encdec",
+    "cache_spec",
+    "pad_cache",
+    "shard",
+]

@@ -1,13 +1,18 @@
-"""Attention: GQA with RoPE and chunked-causal training, and the
-encoder-decoder's cross-attention: the train path of
-``repro.models.attention`` (serving's prefill, decode and KV caches are
-ROADMAP Queue 1, item 3, and raise).
+"""Attention: GQA with RoPE, chunked-causal training and prefill, KV-cache
+decode, sliding windows, and the encoder-decoder's cross-attention (port of
+``repro.models.attention``).
 
-As in the JAX package, training scans over query chunks, so the live
-working set is one ``[B, H, cq, S_kv]`` block, and a sliding window slices
-each chunk's KV range, keeping FLOPs linear in S.  The scores, masks and
-softmax are the JAX package's plain ops, not a fused attention call, so the
-port holds to the JAX package on the CPU.
+As in the JAX package, training and prefill scan over query chunks, so the
+live working set is one ``[B, H, cq, S_kv]`` block, and a sliding window
+slices each chunk's KV range, keeping FLOPs linear in S.  The scores, masks
+and softmax are the JAX package's plain ops, not a fused attention call, so
+the port holds to the JAX package on the CPU.
+
+Decode writes the new token's keys and values into the cache in place (one
+``index_copy_`` each, at the ring slot ``position % T``), where the JAX
+package returns a new cache: the cache passed in is consumed.  ``position``
+may be a Python int or an integer tensor on the cache's device; it is never
+read back to the host.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init, serving_not_ported
+from repro_torch.models.common import apply_rope, dense_init
 from repro_torch.streaming import prng
 
 NEG = -1e30
@@ -187,6 +192,63 @@ def cross_kv(params, dims: AttnDims, enc_out):
     return {"k": _expand_kv(k, dims), "v": _expand_kv(v, dims)}
 
 
-attn_prefill = serving_not_ported("attn_prefill")
-attn_decode = serving_not_ported("attn_decode")
-init_cache = serving_not_ported("init_cache")
+def attn_prefill(params, dims: AttnDims, x, *, q_chunk: int = 512):
+    """Causal self-attention that also returns the KV cache, ``{"k", "v"}``
+    ``[B, S, Hp, hd]`` (the kv heads expanded to the query heads)."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, dims, x, pos)
+    o = attend_chunked(q, k, v, causal=True, sliding_window=dims.sliding_window,
+                       q_chunk=q_chunk)
+    o = _mask_pad_heads(o, dims)
+    o = o.reshape(B, S, dims.hp * dims.head_dim)
+    return o @ params["wo"], {"k": k, "v": v}
+
+
+def position_tensor(position, device) -> torch.Tensor:
+    """``position`` (a Python int or an integer tensor) as a one-element
+    int64 tensor on ``device``, made there without a host round trip."""
+    if isinstance(position, torch.Tensor):
+        return position.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), int(position), dtype=torch.int64, device=device)
+
+
+def attn_decode(params, dims: AttnDims, x, cache, position):
+    """One-token decode against a fixed-size KV cache.
+
+    cache: ``{"k": [B, T, Hp, hd], "v": ...}``, written in place: the new
+    token's keys and values go to the ring slot ``position % T`` of the
+    tensors given, which are returned.  ``position`` is the index of the
+    new token.  Returns (out [B, 1, D], cache)."""
+    B = x.shape[0]
+    hd, Hp = dims.head_dim, dims.hp
+    pos = position_tensor(position, x.device)
+    q, k_new, v_new = _project_qkv(params, dims, x, pos[None])
+    # the cache stores the Hp expanded heads, as the JAX package's does (the
+    # Hp/K memory amplification of low-kv archs is its known trade-off)
+    ck, cv = cache["k"], cache["v"]
+    T = ck.shape[1]
+    slot = pos % T
+    ck.index_copy_(1, slot, k_new)
+    cv.index_copy_(1, slot, v_new)
+
+    s = _gqa_scores(q, ck)  # [B,H,1,T]
+    kpos = torch.arange(T, device=x.device)
+    visible = kpos <= pos
+    # ring semantics: when the cache is exactly the window (T <= w) every
+    # resident slot is in-window by construction; only a larger cache needs
+    # the explicit sliding mask.
+    if dims.sliding_window and T > dims.sliding_window:
+        visible = visible & (kpos > pos - dims.sliding_window)
+    s = torch.where(visible, s, NEG)
+    p = torch.softmax(s.to(torch.float32), dim=-1).to(x.dtype)
+    o = _mask_pad_heads(_gqa_out(p, cv), dims).reshape(B, 1, Hp * hd)
+    return o @ params["wo"], cache
+
+
+def init_cache(dims: AttnDims, B: int, T: int, dtype, device=None) -> dict:
+    Hp, hd = dims.hp, dims.head_dim
+    return {
+        "k": torch.zeros((B, T, Hp, hd), dtype=dtype, device=device),
+        "v": torch.zeros((B, T, Hp, hd), dtype=dtype, device=device),
+    }

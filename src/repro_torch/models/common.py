@@ -22,8 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.streaming import prng
 
-# lanes of one normal draw at a time: a full-width embedding table would
-# take several int64 temporaries of its size otherwise
+# lanes of one normal draw at a time, over the whole key batch: a
+# full-width embedding table, or a stack of full-width layers, would take
+# several int64 temporaries of its size otherwise
 _DRAW_CHUNK = 1 << 25
 
 
@@ -52,16 +53,6 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
     return x
 
 
-def serving_not_ported(name: str):
-    """A serving entry point of the JAX package (prefill, decode, caches)
-    that the port has not yet: calling it raises."""
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is the serving path, not ported yet: ROADMAP Queue 1, item 3")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
 # --------------------------------------------------------------------------
 # initializers
 # --------------------------------------------------------------------------
@@ -69,14 +60,16 @@ def serving_not_ported(name: str):
 
 def normal(key: prng.Key, shape: tuple) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` for every key of a key
-    batch: f32 ``key.shape + shape``, drawn ``_DRAW_CHUNK`` lanes at a time."""
+    batch: f32 ``key.shape + shape``, drawn at most ``_DRAW_CHUNK`` lanes
+    at a time over all the keys (each key's lanes in runs from an offset)."""
     lead = tuple(key[0].shape)
     n = math.prod(shape)
-    if n <= _DRAW_CHUNK:
+    step = max(1, _DRAW_CHUNK // math.prod(lead))
+    if n <= step:
         return prng.normal(key, n).reshape(*lead, *shape)
     out = torch.empty((*lead, n), dtype=torch.float32, device=key[0].device)
-    for a in range(0, n, _DRAW_CHUNK):
-        b = min(n, a + _DRAW_CHUNK)
+    for a in range(0, n, step):
+        b = min(n, a + step)
         out[..., a:b] = prng.normal(key, b - a, offset=a)
     return out.reshape(*lead, *shape)
 
@@ -85,11 +78,11 @@ def dense_init(key, shape, dtype, fan_in: int | None = None) -> torch.Tensor:
     fan = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
     f32 = dict(dtype=torch.float32, device=key[0].device)
     scale = 1.0 / prng.sqrt_f32(torch.tensor(float(max(fan, 1)), **f32))
-    return (normal(key, shape) * scale).to(dtype)
+    return normal(key, shape).mul_(scale).to(dtype)  # in place: one f32 copy at a time
 
 
 def embed_init(key, shape, dtype) -> torch.Tensor:
-    return (normal(key, shape) * 0.02).to(dtype)
+    return normal(key, shape).mul_(0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------

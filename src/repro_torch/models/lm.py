@@ -1,5 +1,5 @@
-"""Model assembly, the training path of ``repro.models.lm``: init and
-train-forward of every family.
+"""Model assembly (port of ``repro.models.lm``): init, train-forward,
+prefill and decode of every family.
 
 Families:
   dense / vlm        : decoder-only transformer (GQA + SwiGLU); vlm prepends a
@@ -18,12 +18,17 @@ Families:
   audio (enc-dec)    : bidirectional encoder over stub frame embeddings +
                        causal decoder with cross-attention (seamless).
 
-Serving (prefill, decode, caches) is ROADMAP Queue 1, item 3: its entry
-points raise ``NotImplementedError``, and so does the one-token MoE path.  As in the JAX package,
-a stack's parameters are stacked over layers and the layer body is
-rematerialised in the backward pass (``torch.utils.checkpoint``, the
-port's ``jax.checkpoint``); a nested stack (a macro's layers) runs as a
-plain loop inside the checkpointed body.
+As in the JAX package, a stack's parameters are stacked over layers and
+the layer body is rematerialised in the backward pass
+(``torch.utils.checkpoint``, the port's ``jax.checkpoint``); a nested
+stack (a macro's layers) runs as a plain loop inside the checkpointed body.
+
+Serving (``prefill``, ``prefill_encdec``, ``decode_step``) runs without
+autograd, a plain loop over the layers.  Its caches have the JAX package's
+layout leaf for leaf (``_cache_spec``: stacked over layers like the
+parameters), but ``decode_step`` writes each layer's new keys and values,
+SSM state and conv tail into the cache given, in place, where the JAX
+package returns a new one: the cache passed in is consumed.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import AttnDims
 from repro_torch.models.common import (
-    embed, embed_init, init_rmsnorm, rmsnorm, serving_not_ported, tree_leaves, tree_map,
+    embed, embed_init, init_rmsnorm, rmsnorm, tree_leaves, tree_map, unembed_logits,
     unembed_loss,
 )
 from repro_torch.models.mlp import init_mlp, mlp_ffn
@@ -313,19 +318,25 @@ def _decoder_stack(cfg: ArchConfig, params, h, *, q_chunk=512, ssm_chunk=256, re
     return h
 
 
-def _encoder_decoder(cfg: ArchConfig, params, batch: dict, *, q_chunk=512, remat=True):
-    """The audio family: the bidirectional encoder over ``enc_embeds``,
-    then the causal decoder over the tokens with cross-attention to it."""
-    enc_h = batch["enc_embeds"].to(params["embed"].dtype)
-    bidir = attn_dims(cfg, causal=False)  # the encoder's and the cross-attention's
+def _encoder(cfg: ArchConfig, params, enc_embeds, *, q_chunk=512, remat=True):
+    """The audio family's bidirectional encoder over ``enc_embeds``, normed."""
+    bidir = attn_dims(cfg, causal=False)
 
     def enc_body(hh, p):
         hh = hh + attn.attn_train(p["attn"], bidir, rmsnorm(hh, p["ln1"], cfg.norm_eps),
                                   q_chunk=q_chunk)
         return hh + mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps))
 
-    enc_h = _scan_layers(params["enc_layers"], enc_body, enc_h, remat)
-    enc_h = rmsnorm(enc_h, params["enc_norm"], cfg.norm_eps)
+    enc_h = _scan_layers(params["enc_layers"], enc_body, enc_embeds.to(params["embed"].dtype),
+                         remat)
+    return rmsnorm(enc_h, params["enc_norm"], cfg.norm_eps)
+
+
+def _encoder_decoder(cfg: ArchConfig, params, batch: dict, *, q_chunk=512, remat=True):
+    """The audio family: the bidirectional encoder over ``enc_embeds``,
+    then the causal decoder over the tokens with cross-attention to it."""
+    enc_h = _encoder(cfg, params, batch["enc_embeds"], q_chunk=q_chunk, remat=remat)
+    bidir = attn_dims(cfg, causal=False)  # the encoder's and the cross-attention's
 
     def dec_body(hh, p):
         hh = hh + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(hh, p["ln1"], cfg.norm_eps),
@@ -374,10 +385,267 @@ def forward_loss(
 
 
 # --------------------------------------------------------------------------
-# prefill / decode (serving): ROADMAP Queue 1, item 3
+# prefill / decode (serving)
 # --------------------------------------------------------------------------
 
-_cache_spec = serving_not_ported("_cache_spec")
-decode_step = serving_not_ported("decode_step")
-prefill = serving_not_ported("prefill")
-prefill_encdec = serving_not_ported("prefill_encdec")
+
+def _zeros_stacked(lead: tuple, tree, device):
+    """Zeros of ``lead + leaf.shape`` for every leaf of ``tree``."""
+    return tree_map(lambda x: torch.zeros((*lead, *x.shape), dtype=x.dtype, device=device),
+                    tree)
+
+
+def _cache_spec(cfg: ArchConfig, B: int, T: int, dtype, device=None):
+    """Initial cache tree (stacked over layers like the params), zeros on
+    ``device``: the JAX package's ``_cache_spec`` leaf for leaf."""
+    fam = cfg.family
+    meta = torch.device("meta")  # one layer's shapes, allocated nowhere
+    if fam in ("dense", "vlm", "moe"):
+        n_stack = cfg.n_layers if fam != "moe" else cfg.n_layers // cfg.moe_every
+        c = attn.init_cache(attn_dims(cfg), B, T, dtype, meta)
+        if fam == "moe" and cfg.moe_every > 1:
+            return {"dense": _zeros_stacked((n_stack, cfg.moe_every - 1), c, device),
+                    "moe": _zeros_stacked((n_stack,), c, device)}
+        return _zeros_stacked((n_stack,), c, device)
+    if fam == "ssm":
+        h, conv = ssm_lib.init_ssm_state(ssm_dims(cfg), B, dtype, meta)
+        return _zeros_stacked((cfg.n_layers,), {"ssm": h, "conv": conv}, device)
+    if fam == "hybrid":
+        every = cfg.hybrid_attn_every
+        n_macro = cfg.n_layers // every
+        tail = cfg.n_layers % every
+        hh, conv = ssm_lib.init_ssm_state(ssm_dims(cfg), B, dtype, meta)
+        # at 500k the shared attention's cache is a ring of the window
+        d = attn_dims(cfg, sliding=cfg.long_context_window if T > 65536 else cfg.sliding_window)
+        kv_T = min(T, cfg.long_context_window) if T > 65536 else T
+        out = _zeros_stacked((n_macro, every), {"ssm": hh, "conv": conv}, device)
+        out["kv"] = _zeros_stacked((n_macro,), attn.init_cache(d, B, kv_T, dtype, meta), device)
+        if tail:
+            out |= _zeros_stacked((tail,), {"tail_ssm": hh, "tail_conv": conv}, device)
+        return out
+    if fam == "audio":
+        c = attn.init_cache(attn_dims(cfg), B, T, dtype, meta)
+        # cross-KV computed at prefill, carried separately
+        return {"self": _zeros_stacked((cfg.dec_layers,), c, device)}
+    raise ValueError(fam)
+
+
+def pad_cache(cache, T: int):
+    """A new cache from a prefill's: the key and value leaves (``"k"``,
+    ``"v"``, time on axis -3) grown to ``T`` slots, zeros after the prompt;
+    SSM states and conv tails copied.  The JAX package's decode test pads
+    the same axis (``jnp.pad`` of every 5-dim leaf, its dense layout)."""
+    if isinstance(cache, dict):
+        return {k: (_pad_time(v, T) if k in ("k", "v") else pad_cache(v, T))
+                for k, v in cache.items()}
+    return cache.clone()
+
+
+def _pad_time(x: torch.Tensor, T: int) -> torch.Tensor:
+    out = x.new_zeros((*x.shape[:-3], T, *x.shape[-2:]))
+    out[..., :x.shape[-3], :, :] = x
+    return out
+
+
+def _at(tree, idx):
+    """The layer ``idx`` of a stacked tree: views, so an in-place write to
+    one lands in the stack."""
+    return tree_map(lambda x: x[idx], tree)
+
+
+def _put(stack, idx: tuple, lead: tuple, tree):
+    """``tree`` written as layer ``idx`` of a stacked tree of ``lead``
+    layers, made at the first write (``jax.lax.scan``'s stacked outputs,
+    without a second copy of them).  Returns the stack."""
+    if stack is None:
+        stack = tree_map(lambda x: x.new_empty((*lead, *x.shape)), tree)
+    tree_map(lambda s_, x: s_[idx].copy_(x), stack, tree)
+    return stack
+
+
+def _ffn(p, cfg: ArchConfig, x):
+    """A block's FFN: its MoE where it has one, else its MLP."""
+    if "moe" in p:
+        return moe_lib.moe_ffn(p["moe"], moe_dims(cfg), x)
+    return mlp_ffn(p["mlp"], x)
+
+
+def _block_prefill(p, cfg: ArchConfig, h, q_chunk: int):
+    """A dense or MoE block over the prompt; returns (h, its kv)."""
+    a, kv = attn.attn_prefill(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
+                              q_chunk=q_chunk)
+    h = h + a
+    return h + _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps)), kv
+
+
+def _block_decode(p, cfg: ArchConfig, h, c, pos):
+    """A dense or MoE block's decode step against its cache ``c``
+    (written in place)."""
+    a, _ = attn.attn_decode(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps), c,
+                            pos)
+    h = h + a
+    return h + _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+
+def _shared_block(shared, cfg: ArchConfig, h, attend):
+    """The hybrid's shared attention + MLP block; ``attend(x)`` returns
+    the attention's (out, kv)."""
+    a, kv = attend(rmsnorm(h, shared["ln"], cfg.norm_eps))
+    h = h + a
+    return h + mlp_ffn(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps)), kv
+
+
+def _mamba_decode(p, cfg: ArchConfig, h, st, cv):
+    """A Mamba block's decode step from the state ``st`` and conv tail
+    ``cv``, which are overwritten by the new ones."""
+    h, (nst, ncv) = mamba_block(p, cfg, h, state=st, conv=cv, chunk=1)
+    st.copy_(nst)
+    cv.copy_(ncv)
+    return h
+
+
+def _last_logits(cfg: ArchConfig, params, h):
+    """The final norm and unembedding of the last position alone."""
+    h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed_logits(h, table)
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params, cache, token: torch.Tensor, position, *,
+                enc_kv=None):
+    """One-token serve step.  token: [B, 1] int; returns (logits [B, 1, V],
+    cache).
+
+    The cache is consumed: each layer's new keys and values go to the ring
+    slot ``position % T`` of its ``"k"``/``"v"``, and its new SSM state and
+    conv tail over the old, in place; the cache returned is the one given.
+    ``position`` (a Python int or an integer tensor on the device) is not
+    read back to the host.  ``enc_kv``: the audio family's cross-attention
+    keys and values from :func:`prefill_encdec`."""
+    h = embed(token, params["embed"])
+    pos = attn.position_tensor(position, h.device)
+    fam = cfg.family
+
+    if fam in ("dense", "vlm") or (fam == "moe" and cfg.moe_every == 1):
+        for i, p in enumerate(_layers(params["layers"])):
+            h = _block_decode(p, cfg, h, _at(cache, i), pos)
+    elif fam == "moe":
+        for i, p in enumerate(_layers(params["layers"])):
+            for j, pd in enumerate(_layers(p["dense"])):
+                h = _block_decode(pd, cfg, h, _at(cache["dense"], (i, j)), pos)
+            h = _block_decode(p["moe"], cfg, h, _at(cache["moe"], i), pos)
+    elif fam == "ssm":
+        for i, p in enumerate(_layers(params["layers"])):
+            h = _mamba_decode(p, cfg, h, cache["ssm"][i], cache["conv"][i])
+    elif fam == "hybrid":
+        shared = params["shared_attn"]
+        # ring cache == window at 500k: the ring itself enforces the sliding
+        # window, so the attention dims carry sliding=0 (see attn_decode).
+        d = attn_dims(cfg, sliding=0)
+        for i, p in enumerate(_layers(params["layers"])):
+            for j, pm in enumerate(_layers(p)):
+                h = _mamba_decode(pm, cfg, h, cache["ssm"][i, j], cache["conv"][i, j])
+            h, _ = _shared_block(shared, cfg, h, lambda x: attn.attn_decode(
+                shared["attn"], d, x, _at(cache["kv"], i), pos))
+        if "tail" in params:
+            for i, p in enumerate(_layers(params["tail"])):
+                h = _mamba_decode(p, cfg, h, cache["tail_ssm"][i], cache["tail_conv"][i])
+    elif fam == "audio":
+        xdims = attn_dims(cfg, causal=False)
+        for i, p in enumerate(_layers(params["layers"])):
+            a, _ = attn.attn_decode(p["attn"], attn_dims(cfg),
+                                    rmsnorm(h, p["ln1"], cfg.norm_eps), _at(cache["self"], i),
+                                    pos)
+            h = h + a
+            h = h + attn.attn_cross(p["xattn"], xdims, rmsnorm(h, p["lnx"], cfg.norm_eps),
+                                    _at(enc_kv, i), q_chunk=1)
+            h = h + mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+    else:
+        raise ValueError(fam)
+    return _last_logits(cfg, params, h), cache
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params, tokens, *, prefix_embeds=None, q_chunk: int = 512,
+            ssm_chunk: int = 256):
+    """Prefill over a prompt: returns (last-position logits [B, 1, V],
+    cache), the cache at the prompt's length (:func:`pad_cache` grows it
+    for decode).
+
+    ``prefix_embeds`` [B, P, D]: stub modality frontend output (vlm)
+    prepended before the token embeddings; the KV cache then covers P + S
+    positions."""
+    h = embed(tokens, params["embed"])
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    fam = cfg.family
+    cache = None
+
+    if fam in ("dense", "vlm") or (fam == "moe" and cfg.moe_every == 1):
+        n = cfg.n_layers // (cfg.moe_every if fam == "moe" else 1)
+        for i, p in enumerate(_layers(params["layers"])):
+            h, kv = _block_prefill(p, cfg, h, q_chunk)
+            cache = _put(cache, (i,), (n,), kv)
+    elif fam == "moe":
+        n, every = cfg.n_layers // cfg.moe_every, cfg.moe_every
+        dense = moe = None
+        for i, p in enumerate(_layers(params["layers"])):
+            for j, pd in enumerate(_layers(p["dense"])):
+                h, kv = _block_prefill(pd, cfg, h, q_chunk)
+                dense = _put(dense, (i, j), (n, every - 1), kv)
+            h, kv = _block_prefill(p["moe"], cfg, h, q_chunk)
+            moe = _put(moe, (i,), (n,), kv)
+        cache = {"dense": dense, "moe": moe}
+    elif fam == "ssm":
+        for i, p in enumerate(_layers(params["layers"])):
+            h, (st, cv) = mamba_block(p, cfg, h, chunk=ssm_chunk)
+            cache = _put(cache, (i,), (cfg.n_layers,), {"ssm": st, "conv": cv})
+    elif fam == "hybrid":
+        shared = params["shared_attn"]
+        every = cfg.hybrid_attn_every
+        n_macro = cfg.n_layers // every
+        states = kvs = None
+        for i, p in enumerate(_layers(params["layers"])):
+            for j, pm in enumerate(_layers(p)):
+                h, (st, cv) = mamba_block(pm, cfg, h, chunk=ssm_chunk)
+                states = _put(states, (i, j), (n_macro, every), {"ssm": st, "conv": cv})
+            h, kv = _shared_block(shared, cfg, h, lambda x: attn.attn_prefill(
+                shared["attn"], attn_dims(cfg), x, q_chunk=q_chunk))
+            kvs = _put(kvs, (i,), (n_macro,), kv)
+        cache = dict(states, kv=kvs)
+        if "tail" in params:
+            tail = None
+            n_tail = cfg.n_layers % every
+            for i, p in enumerate(_layers(params["tail"])):
+                h, (st, cv) = mamba_block(p, cfg, h, chunk=ssm_chunk)
+                tail = _put(tail, (i,), (n_tail,), {"tail_ssm": st, "tail_conv": cv})
+            cache |= tail
+    elif fam == "audio":
+        raise ValueError("audio prefill goes through prefill_encdec")
+    else:
+        raise ValueError(fam)
+    return _last_logits(cfg, params, h), cache
+
+
+@torch.no_grad()
+def prefill_encdec(cfg: ArchConfig, params, enc_embeds, dec_tokens, *, q_chunk: int = 512):
+    """Encoder pass + decoder prefill; returns (logits [B, 1, V],
+    self-cache ``{"self": {"k", "v"}}``, cross-KV ``{"k", "v"}``: each
+    decoder layer's ``cross_kv`` of the encoder output, stacked)."""
+    enc_h = _encoder(cfg, params, enc_embeds, q_chunk=q_chunk, remat=False)
+    bidir = attn_dims(cfg, causal=False)  # the cross-attention's
+    h = embed(dec_tokens, params["embed"])
+    n = cfg.dec_layers
+    self_kv = enc_kv = None
+    for i, p in enumerate(_layers(params["layers"])):
+        a, kv = attn.attn_prefill(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                  q_chunk=q_chunk)
+        h = h + a
+        ekv = attn.cross_kv(p["xattn"], bidir, enc_h)
+        h = h + attn.attn_cross(p["xattn"], bidir, rmsnorm(h, p["lnx"], cfg.norm_eps), ekv,
+                                q_chunk=q_chunk)
+        h = h + mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+        self_kv = _put(self_kv, (i,), (n,), kv)
+        enc_kv = _put(enc_kv, (i,), (n,), ekv)
+    return _last_logits(cfg, params, h), {"self": self_kv}, enc_kv

@@ -1,7 +1,6 @@
 """Mixture-of-Experts FFN: token-choice top-k routing with sort-based
 dispatch into capacity-bounded expert buffers (port of
-``repro.models.moe``'s training path; the one-token ``_moe_ffn_decode``
-comes with serving, ROADMAP Queue 1, item 3, and raises).
+``repro.models.moe``).
 
 As in the JAX package:
 
@@ -15,10 +14,12 @@ As in the JAX package:
   6. gather back and combine with gates.
 
 One card has no ``pod``/``data`` axis, so there is one token group
-(``G = 1``).  Dispatch and combine move rows by :func:`gather_rows`, whose
-backward is a gather too: the inverse map (each token's at most K slots,
-each slot's one token) exists, so no step of the layer, forward or
-backward, adds by atomics, and a step on the card repeats bit for bit.
+(``G = 1``), and the decode-time path (``_moe_ffn_decode``, one token a
+sequence) computes as ``moe_ffn`` does.  Dispatch and combine move rows by
+:func:`gather_rows`, whose backward is a gather too: the inverse map
+(each token's at most K slots, each slot's one token) exists, so no step
+of the layer, forward or backward, adds by atomics, and a step on the
+card repeats bit for bit.
 The combine adds a token's K expert outputs in slot order (its experts in
 ascending order), the order in which XLA's CPU scatter-add visits them.
 """
@@ -29,7 +30,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, serving_not_ported
+from repro_torch.models.common import dense_init
 from repro_torch.models.mlp import init_mlp, mlp_ffn
 from repro_torch.streaming import prng
 
@@ -173,17 +174,33 @@ def moe_ffn(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
 
     The JAX package's dispatch and combine as slot-side row moves: the
     buffer slot ``s`` reads token ``tok_of_slot[s]``, and token ``t`` adds
-    the gated outputs of its kept slots.  No auxiliary load-balancing term
-    is added here or in ``lm.forward_loss``: the JAX ``forward_loss``
-    docstring promises one, but its code adds none, and the port follows
-    the code (:func:`aux_load_balance_loss` is there to call)."""
+    the gated outputs of its kept slots.  One token a sequence (``S ==
+    1``) is decode, :func:`_moe_ffn_decode`, as in the JAX package.  No
+    auxiliary load-balancing term is added here or in ``lm.forward_loss``:
+    the JAX ``forward_loss`` docstring promises one, but its code adds
+    none, and the port follows the code (:func:`aux_load_balance_loss` is
+    there to call)."""
     B, S, D = x.shape
-    E, K = dims.n_experts, dims.top_k
-    T = B * S
     if S == 1:
         return _moe_ffn_decode(params, dims, x)
+    return _one_group(params, dims, x.reshape(B * S, D)).reshape(B, S, D)
+
+
+def _moe_ffn_decode(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
+    """Decode-mode MoE (``S == 1``): the ``B`` tokens as one group with
+    ``C = capacity(dims, B)``.  The JAX package's decode path differs from
+    its ``moe_ffn`` only in how a mesh shards it, so on one card both are
+    :func:`_one_group`; its combine, a scatter-add in slot order on XLA's
+    CPU, is each token's gather of its K slots added in slot order."""
+    B, S, D = x.shape
+    return _one_group(params, dims, x.reshape(B * S, D)).reshape(B, S, D)
+
+
+def _one_group(params, dims: MoEDims, xf: torch.Tensor) -> torch.Tensor:
+    """Steps 1-7 over the ``T`` tokens ``xf [T, D]`` as one group."""
+    T, D = xf.shape
+    E, K = dims.n_experts, dims.top_k
     C = capacity(dims, T)
-    xf = x.reshape(T, D)
 
     # 1-4. routing (f32) and the slot maps
     probs = torch.softmax(xf.to(torch.float32) @ params["router"], dim=-1)
@@ -204,7 +221,7 @@ def moe_ffn(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
 
     # 7. combine: each token gathers its K slots (dropped pairs read the
     # zero row) and adds them in slot order
-    y_flat = (y.reshape(E * C, D) * gate_of_slot).to(x.dtype)
+    y_flat = (y.reshape(E * C, D) * gate_of_slot).to(xf.dtype)
     parts = gather_rows(y_flat, r["slot_of_token"], r["pos_of_slot"])  # [T, K, D]
     out = parts[:, 0]
     for k in range(1, K):
@@ -212,10 +229,7 @@ def moe_ffn(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
 
     if dims.shared_expert:
         out = out + mlp_ffn(params["shared"], xf)
-    return out.reshape(B, S, D)
-
-
-_moe_ffn_decode = serving_not_ported("_moe_ffn_decode")
+    return out
 
 
 def aux_load_balance_loss(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Selective state-space blocks: Mamba1 (falcon-mamba) and Mamba2 (zamba2),
-the full-sequence path of ``repro.models.ssm`` (the one-token decode and
-its state init come with serving, ROADMAP Queue 1, item 3, and raise).
+port of ``repro.models.ssm``: the full-sequence forward, and decode, the
+O(1) single-step update on the carried state and conv tail.
 
 The recurrence h_t = a_t*h_{t-1} + b_t runs as the JAX package runs it, a
 *chunked associative scan*: a loop over chunks carrying the [B, ..., N]
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, rmsnorm, serving_not_ported
+from repro_torch.models.common import dense_init, rmsnorm
 from repro_torch.streaming import prng
 
 
@@ -246,5 +246,21 @@ def mamba_forward(params, dims: SSMDims, x, state=None, conv_prev=None, chunk: i
     return out, (h_last, conv_tail)
 
 
-mamba_decode = serving_not_ported("mamba_decode")
-init_ssm_state = serving_not_ported("init_ssm_state")
+def mamba_decode(params, dims: SSMDims, x, state, conv_prev):
+    """Single-token step.  x: [B, 1, D]; O(1) state update.  Returns (y,
+    (new state, new conv tail)), new tensors: the state given is not
+    written."""
+    return mamba_forward(params, dims, x, state=state, conv_prev=conv_prev, chunk=1)
+
+
+def init_ssm_state(dims: SSMDims, B: int, dtype=torch.bfloat16, device=None):
+    """Zero ``(h, conv)``: ``h`` is f32 whatever ``dtype`` (``[B, Di, N]``
+    for Mamba1, ``[B, H, P, N]`` for Mamba2), the conv tail ``[B, d_conv - 1,
+    Di]`` in ``dtype``."""
+    if dims.version == 1:
+        shape = (B, dims.d_inner, dims.d_state)
+    else:
+        shape = (B, dims.heads, dims.head_dim, dims.d_state)
+    h = torch.zeros(shape, dtype=torch.float32, device=device)
+    conv = torch.zeros((B, dims.d_conv - 1, dims.d_inner), dtype=dtype, device=device)
+    return h, conv

@@ -4,8 +4,11 @@
 returns ``step(params, opt, batch) -> (params, opt, stats)`` — forward loss
 (rematerialised layers), backward, global-norm clip, AdamW.  ``stats``
 carries the scalars the WCRDT metric lattice folds (loss, tokens,
-grad-norm), as 0-d f32 tensors on the parameters' device.  The serve and
-prefill steps are ROADMAP Queue 1, item 3, and raise.
+grad-norm), as 0-d f32 tensors on the parameters' device.
+``make_serve_step`` and ``make_prefill_step`` return the serving steps
+(``lm.decode_step``, ``lm.prefill`` / ``lm.prefill_encdec``), which run
+without autograd; a serve step consumes the cache it is given (written in
+place).
 
 Every op of a step on the card is deterministic run to run (the embedding's
 backward sums repeated tokens in a fixed order, the xent picks its gold
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.models.common import serving_not_ported, tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.training.optimizer import AdamWState, adamw_update
 
 
@@ -80,5 +83,28 @@ def _unflatten(tree, it):
     return next(it)
 
 
-make_serve_step = serving_not_ported("make_serve_step")
-make_prefill_step = serving_not_ported("make_prefill_step")
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """decode: (params, cache, token, position[, enc_kv]) -> (logits, cache)."""
+
+    def step(params, cache, token, position, enc_kv=None):
+        return lm.decode_step(cfg, params, cache, token, position, enc_kv=enc_kv)
+
+    return step
+
+
+def make_prefill_step(cfg: ArchConfig, *, q_chunk: int = 512, ssm_chunk: int = 256) -> Callable:
+    """prefill: (params, tokens[, prefix_embeds]) -> (logits, cache), or for
+    an encoder-decoder (params, enc_embeds, tokens) -> (logits, cache,
+    enc_kv)."""
+    if cfg.is_enc_dec:
+
+        def step(params, enc_embeds, tokens):
+            return lm.prefill_encdec(cfg, params, enc_embeds, tokens, q_chunk=q_chunk)
+
+    else:
+
+        def step(params, tokens, prefix_embeds=None):
+            return lm.prefill(cfg, params, tokens, prefix_embeds=prefix_embeds,
+                              q_chunk=q_chunk, ssm_chunk=ssm_chunk)
+
+    return step

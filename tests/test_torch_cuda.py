@@ -902,3 +902,73 @@ def test_moe_gather_rows_backward_is_bitwise_on_card(dev):
     out = moe.gather_rows(src, r["tok_of_slot"], r["slot_of_token"])
     torch.testing.assert_close(out.cpu(), torch.cat([src, src[:1] * 0])[r["tok_of_slot"]].cpu(),
                                rtol=0, atol=0)
+
+
+# one architecture of each family, served at reduced(): prefill, then decode
+SERVE_ARCHS = ["minitron_4b", "pixtral_12b", "llama4_scout_17b_a16e", "falcon_mamba_7b",
+               "zamba2_7b", "seamless_m4t_large_v2"]
+
+
+def _serve_run(cfg, dev, steps=4):
+    """Parameters drawn on ``dev`` from seed 0, a prefill of 2 x 32 tokens
+    (4 stub patch embeddings before them for vlm, 32 frames for audio),
+    its cache grown to hold ``steps`` more, then ``steps`` decode steps of
+    the next prompt tokens.  Returns the parameters, every step's logits
+    and the final cache."""
+    from repro_torch.models import lm
+    from repro_torch.streaming import prng
+
+    p = lm.init_params(cfg, prng.prng_key(0, dev), dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32 + steps))).to(dev)
+    P = 4 if cfg.family == "vlm" else 0
+    extra = torch.from_numpy(rng.standard_normal((2, 32 if cfg.is_enc_dec else P, cfg.d_model))
+                             .astype(np.float32)).to(dev)
+    enc_kv = None
+    if cfg.is_enc_dec:
+        logits, cache, enc_kv = lm.prefill_encdec(cfg, p, extra, toks[:, :32], q_chunk=16)
+    else:
+        logits, cache = lm.prefill(cfg, p, toks[:, :32], prefix_embeds=extra if P else None,
+                                   q_chunk=16, ssm_chunk=8)
+    cache = lm.pad_cache(cache, P + 32 + steps)
+    out = [logits]
+    for i in range(steps):
+        lg, cache = lm.decode_step(cfg, p, cache, toks[:, 32 + i:33 + i], P + 32 + i,
+                                   enc_kv=enc_kv)
+        out.append(lg)
+    return p, out, cache
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_on_card_matches_cpu(dev, arch):
+    """Prefill and 4 decode steps at ``reduced()`` in f32 (TF32 off), card
+    against CPU: parameters bitwise, every step's logits and every cache
+    leaf to tests/test_torch_serve_families.py's tolerances (1e-5 of the
+    largest magnitude; 1e-4 for the hybrid's scan)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    tol = 1e-4 if cfg.family == "hybrid" else 1e-5
+    (pc, lc, cc), (pg, lg, cg) = (_serve_run(cfg, d) for d in ("cpu", dev))
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(lg + tree_leaves(cg), lc + tree_leaves(cc)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=tol * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_repeats_bitwise_on_card(dev, arch):
+    """A prefill and 4 decode steps on the card, twice: every logit and
+    every cache leaf bit for bit (the cache is written by ``index_copy_``
+    and ``copy_``, the MoE combine is a gather: no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    (_, l1, c1), (_, l2, c2) = (_serve_run(cfg, dev) for _ in range(2))
+    for a, b in zip(l1 + tree_leaves(c1), l2 + tree_leaves(c2)):
+        assert torch.equal(a, b)

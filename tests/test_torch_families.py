@@ -9,12 +9,11 @@ audio) against the JAX package's, on the CPU in f32.
   families to ``rtol=1e-5`` (tests/test_torch_models.py's tolerance);
 * the mirrors of ``tests/test_models_smoke.py``'s
   ``test_forward_loss_finite`` and ``test_train_step_updates_params`` on the
-  port alone, over all ten architectures;
-* serving's entry points, not ported yet, raise naming ROADMAP Queue 1,
-  item 3.
+  port alone, over all ten architectures.
 
 One ``make_train_step`` step against JAX is in
-``tests/test_torch_families_step.py``.
+``tests/test_torch_families_step.py``; serving (prefill, decode, caches)
+in ``tests/test_torch_serve.py`` and ``tests/test_torch_serve_families.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -151,33 +150,3 @@ def test_train_step_updates_params(arch):
     moved = any(not torch.equal(a, b)
                 for a, b in zip(tree_leaves(params), tree_leaves(new_params)))
     assert moved, f"{arch}: no parameter changed"
-
-
-# ---------------------------------------------------------------------------
-# serving is not ported yet: each of its entry points raises, naming it
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("module, name", [
-    ("lm", "prefill"), ("lm", "decode_step"), ("lm", "prefill_encdec"), ("lm", "_cache_spec"),
-    ("attention", "attn_prefill"), ("attention", "attn_decode"), ("attention", "init_cache"),
-    ("ssm", "mamba_decode"), ("ssm", "init_ssm_state"), ("moe", "_moe_ffn_decode"),
-    ("train_step", "make_serve_step"), ("train_step", "make_prefill_step")])
-def test_serving_entry_points_raise(module, name):
-    import importlib
-
-    pkg = "repro_torch.training" if module == "train_step" else "repro_torch.models"
-    fn = getattr(importlib.import_module(f"{pkg}.{module}"), name)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        fn(None)
-
-
-def test_moe_ffn_one_token_is_serving():
-    """``moe_ffn`` on one token a sequence takes the JAX package's decode
-    path, which is serving."""
-    from repro_torch.models import moe
-
-    d = moe.MoEDims(d_model=8, n_experts=4, top_k=1, d_ff=8)
-    p = moe.init_moe(prng.prng_key(0), d, torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        moe.moe_ffn(p, d, torch.zeros((2, 1, 8)))
