@@ -144,8 +144,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    up).  (c) ``_moe_ffn_decode`` on 128 tokens at qwen3-moe's
    and llama4-scout's widths, bf16, against the per-token reference of 8c,
    routed and overflowed, timed beside its bytes bound.
-10. Print events/s and sync bytes per round per run, with the card.
-11. A JSON line ``{"kernels": [...]}``, then the last line
+10. The dry run (``run_dry_run``; ``repro_torch.launch.dryrun``): no
+    kernel of the port lies on it, and none may be launched.  (a) One cell
+    a family at full depth on the ``pod_16x16`` mesh (megatron), sharded
+    over a fake process group of 256 ranks on this machine's CPU, no
+    device memory, in a process of its own (no card visible, one thread)
+    started before phase 7 and read here: minitron-4b ``train_4k``,
+    qwen3-moe-235b-a22b ``train_4k`` (experts over ``model``), falcon-mamba-7b
+    ``prefill_32k``, zamba2-7b ``decode_32k``, seamless-m4t-large-v2
+    ``decode_32k`` (with its encoder keys and values) and pixtral-12b
+    ``prefill_32k``: parameters, per-device flops, bytes and collective
+    bytes by kind, the peak bytes a device holds and ``fits`` (against
+    80 GB), the roofline terms on the H100's constants and the dominant
+    one, the useful-flops ratio and the seconds the sharded step took.
+    (b) The calibration: the steps that phases 7 and 9 time (minitron-4b
+    at 2 of 32 layers, one f32 train step of 1 x 4,096 tokens; minitron-4b
+    whole in bf16, the prefill of 8 x 2,048 tokens and one decode step at
+    T 2,176) dry-run on a 1x1 mesh.  Each step's global flop count is held
+    equal to ``FlopCounterMode``'s count of one more run of it on the card
+    (made in phases 7 and 9, apart from their timed runs), and printed
+    beside its MFU, ``mfu_flops / (measured s x peak)`` for the step's
+    dtype (f32 with TF32 off takes the f32 peak; ``mfu_flops`` is 6·N·D
+    over the parameters that multiply a token, and must not exceed the
+    counted flops: MFU <= HFU), the roofline terms beside the measured time
+    (from the phases' own untraced runs), and the predicted peak bytes
+    beside ``torch.cuda.max_memory_allocated``.
+11. Print events/s and sync bytes per round per run, with the card.
+12. A JSON line ``{"kernels": [...]}``, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
@@ -258,6 +283,15 @@ SERVE_FULL = (
     ("seamless_m4t_large_v2", 8, 1_024, 4_096, 1_152),
 )
 SERVE_DECODE, SERVE_PROFILE = 128, 16  # greedy steps (the first a warm-up); profiled
+SERVE_CALIBRATED = "minitron_4b"  # its prefill and decode step are counted for phase 10
+# phase 10, the dry run: one full-depth cell a family on pod_16x16 (megatron),
+# device-free; then the steps that phases 7 and 9 time on the card (their
+# measured seconds and peak memory, and FlopCounterMode's count of one more
+# run of each, are kept here as those phases run) dry-run on a 1x1 mesh
+DRYRUN_CELLS = (("minitron_4b", "train_4k"), ("qwen3_moe_235b_a22b", "train_4k"),
+                ("falcon_mamba_7b", "prefill_32k"), ("zamba2_7b", "decode_32k"),
+                ("seamless_m4t_large_v2", "decode_32k"), ("pixtral_12b", "prefill_32k"))
+CALIBRATION: dict = {}
 SERVE_MOE_TOKENS = 128
 # 9a's tolerances, tests/test_torch_serve_families.py's (of the largest
 # magnitude): the hybrid's scan rounding carried through its gated RMSNorms
@@ -2180,10 +2214,13 @@ def same_numpy_tree(a, b, what: str) -> None:
         raise AssertionError(f"{what}: differs")
 
 
-def timed_steps(cfg, batch: int, seq: int, steps: int, dev, q_chunk: int) -> dict:
+def timed_steps(cfg, batch: int, seq: int, steps: int, dev, q_chunk: int,
+                count_flops: bool = False) -> dict:
     """``steps`` steps of the launcher's loop on the card (its token stream,
     ``make_train_step`` and the metric fold at 4 workers), each synchronised
-    and timed; the peak device memory from a reset before the parameters."""
+    and timed; the peak device memory from a reset before the parameters.
+    With ``count_flops``, one more step, untimed, under ``FlopCounterMode``
+    (``counted_flops``)."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import init_params
     from repro_torch.models.common import tree_leaves
@@ -2218,10 +2255,19 @@ def timed_steps(cfg, batch: int, seq: int, steps: int, dev, q_chunk: int) -> dic
     lnv = float(np.log(cfg.vocab))
     if not all(np.isfinite(losses)) or not lnv - 1.0 <= losses[-1] <= lnv + 2.0:
         raise AssertionError(f"{cfg.name}: losses {losses}, expected finite, near ln V = {lnv}")
+    out = {"params": n_params, "init_s": init_s, "step_s": secs, "peak_gb": peak / 1e9,
+           "loss_first": losses[0], "loss_last": losses[-1], "ln_vocab": lnv}
+    if count_flops:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        b = synthetic_batch(SEED, steps, batch, seq, cfg.vocab, dev)
+        with FlopCounterMode(display=False) as fc:
+            params, opt, stats = step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        out["counted_flops"] = fc.get_total_flops()
     del params, opt, metrics, stats
     torch.cuda.empty_cache()
-    return {"params": n_params, "init_s": init_s, "step_s": secs, "peak_gb": peak / 1e9,
-            "loss_first": losses[0], "loss_last": losses[-1], "ln_vocab": lnv}
+    return out
 
 
 def run_training(dev, card: str) -> tuple[dict, dict]:
@@ -2293,10 +2339,15 @@ def run_training(dev, card: str) -> tuple[dict, dict]:
 
     seq = SHAPES["train_4k"].seq_len
     cfg = dataclasses.replace(get_config("minitron_4b"), n_layers=MINITRON_LAYERS)
-    r = timed_steps(cfg, 1, seq, 1, dev, q_chunk=512)
+    r = timed_steps(cfg, 1, seq, 1, dev, q_chunk=512, count_flops=True)
     log(json.dumps({"train": f"minitron-4b widths, {MINITRON_LAYERS} of 32 layers",
                     "batch": 1, "seq": seq, "max_memory_allocated_gb": r["peak_gb"], **r,
                     "card": card}))
+    CALIBRATION["train"] = {"cfg": cfg, "batch": 1, "seq": seq, "q_chunk": 512,
+                            "dtype": torch.float32, "measured_s": r["step_s"][0],
+                            "peak_gb": r["peak_gb"], "counted_flops": r["counted_flops"],
+                            "what": f"phase 7: one f32 train step, minitron-4b widths at "
+                                    f"{MINITRON_LAYERS} of 32 layers, 1 x {seq} tokens"}
 
     rows = {"window_agg": [], "actor_sum": []}
     for args, kw in calls["window_agg"]:
@@ -2924,6 +2975,8 @@ def serve_full(arch: str, B_: int, S_: int, frames: int, T_, dev, card: str) -> 
     prof, prefill_s2 = b["profile"], b["prefill_s"]
     del b
     a["cache"] = a["enc_kv"] = None
+    if arch == SERVE_CALIBRATED:
+        count_serving(cfg, params, prompt, prefill_step, serve, T_, a, peak)
     # sequence 0: the decode of its last prompt token in bf16, reported; then
     # the same model with its bf16 weights in f32, where it is held
     gap = next_token_gap(cfg, params, prompt[:1], None if enc is None else enc[:1],
@@ -2954,6 +3007,37 @@ def serve_full(arch: str, B_: int, S_: int, frames: int, T_, dev, card: str) -> 
     torch.cuda.empty_cache()
     log(json.dumps(r))
     return r
+
+
+def count_serving(cfg, params, prompt, prefill_step, serve, T_: int, a: dict,
+                  peak: int) -> None:
+    """``FlopCounterMode``'s count of one more prefill, and of one decode
+    step into its cache grown to ``T_`` slots, beside the times and peak of
+    :func:`serve_full`'s untraced run (``a``), for phase 10's calibration."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import lm
+
+    B_, S_ = prompt.shape
+    with FlopCounterMode(display=False) as fc:
+        logits, cache = prefill_step(params, prompt)
+    torch.cuda.synchronize()
+    cache = lm.pad_cache(cache, T_)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    with FlopCounterMode(display=False) as fd:
+        serve(params, cache, tok, S_)
+    torch.cuda.synchronize()
+    del cache, logits
+    what = f"phase 9b: {cfg.name} whole in bf16"
+    CALIBRATION["prefill"] = {"cfg": cfg, "batch": B_, "seq": S_, "dtype": torch.bfloat16,
+                              "measured_s": a["prefill_s"], "peak_gb": peak / 1e9,
+                              "counted_flops": fc.get_total_flops(),
+                              "what": f"{what}, prefill of {B_} x {S_} tokens"}
+    CALIBRATION["decode"] = {"cfg": cfg, "batch": B_, "seq": T_, "dtype": torch.bfloat16,
+                             "measured_s": float(np.median(a["secs"][1:])),
+                             "peak_gb": peak / 1e9, "counted_flops": fd.get_total_flops(),
+                             "what": f"{what}, one decode step of {B_} tokens at T {T_} "
+                                     f"(median of {SERVE_DECODE - 1})"}
 
 
 def moe_decode_run(arch: str, dev, card: str) -> dict:
@@ -3033,6 +3117,95 @@ def run_serving(dev, card: str) -> None:
     log(f"9c done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the dry run
+# ---------------------------------------------------------------------------
+
+
+# 10a's cells, run in a process of their own (no card: CUDA_VISIBLE_DEVICES
+# is empty, one CPU thread) alongside phases 7-9, one JSON line a record
+DRYRUN_CODE = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+for arch, cell in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, cell, save=False, verbose=False)
+    print("DRYRUN " + json.dumps({
+        "dryrun": arch, "cell": cell, "mesh": rec["mesh"], "strategy": rec["strategy"],
+        "params": rec["params"], "flops_per_device": rec["hlo_flops_per_device"],
+        "bytes_per_device": rec["hlo_bytes_per_device"],
+        "collective_bytes_per_device": rec["collective_bytes_per_device"],
+        "peak_gb_per_device": rec["peak_bytes_per_device"] / 1e9, "fits": rec["fits"],
+        "roofline": rec["roofline"], "useful_flops_ratio": rec["useful_flops_ratio"],
+        "lower_s": rec["lower_s"], "run_on": "the host's CPU, no device memory",
+        "torch": torch.__version__}), flush=True)
+print(f"DRYRUN_WALL {time.perf_counter() - t0}", flush=True)
+"""
+
+
+def start_dry_run_cells() -> subprocess.Popen:
+    """10a's dry runs (``DRYRUN_CELLS``), started in a device-free process
+    of one CPU thread; :func:`run_dry_run` reads them."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_CELLS)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+
+
+def run_dry_run(card: str, cells: subprocess.Popen) -> None:
+    """Phase 10 (see the docstring): 10a the records of the six full-depth
+    cells that ``cells`` (:func:`start_dry_run_cells`) made on
+    ``pod_16x16``; 10b phases 7 and 9's steps (``CALIBRATION``) on a 1x1
+    mesh against their runs on the card.  No kernel of the port may be
+    launched."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out, err = cells.communicate(timeout=900)
+    if cells.returncode != 0:
+        raise AssertionError(f"10a's dry runs exited {cells.returncode}: {err[-4000:]}")
+    recs = [ln[len("DRYRUN "):] for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+    if len(recs) != len(DRYRUN_CELLS):
+        raise AssertionError(f"10a: {len(recs)} records of {len(DRYRUN_CELLS)}: {out[-2000:]}")
+    for r in recs:
+        log(r)
+    wall = [ln.split()[1] for ln in out.splitlines() if ln.startswith("DRYRUN_WALL ")]
+    log(f"10a done: its process took {float(wall[0]):.1f} s alongside phases 7-9, "
+        f"waited {time.perf_counter() - t0:.1f} s for it")
+    for kind in ("train", "prefill", "decode"):
+        c = CALIBRATION[kind]
+        cell = ShapeCell(f"{kind}_card", c["seq"], c["batch"], kind)
+        with fake_world(1):
+            rec = dryrun.record(c["cfg"], cell, make_mesh((1, 1), ("data", "model")),
+                                q_chunk=c.get("q_chunk", 512), dtype=c["dtype"])
+        if rec["global_flops"] != c["counted_flops"]:
+            raise AssertionError(f"dry run of {c['what']}: {rec['global_flops']} flops, the "
+                                 f"card's run counted {c['counted_flops']}")
+        peak, t, rf = dryrun.PEAK_FLOPS[c["dtype"]], c["measured_s"], rec["roofline"]
+        bound = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
+        mfu, hfu = rec["mfu_flops"] / (t * peak), rec["global_flops"] / (t * peak)
+        if not 0.0 < mfu <= hfu:  # the step does at least its model's flops
+            raise AssertionError(f"{c['what']}: mfu {mfu} outside (0, hfu {hfu}]")
+        log(json.dumps({
+            "calibration": c["what"], "global_flops": rec["global_flops"],
+            "card_counted_flops": c["counted_flops"], "model_flops": rec["model_flops"],
+            "mfu_flops": rec["mfu_flops"], "measured_s": t, "peak_flops": peak, "mfu": mfu,
+            "hfu": hfu, "roofline": rf,
+            "memory_s_parsed_upper_bound": rec["memory_s_parsed_upper_bound"],
+            "measured_over_roofline": t / bound,
+            "predicted_peak_gb": rec["peak_bytes_per_device"] / 1e9,
+            "predicted_argument_gb": rec["memory_analysis"]["argument_bytes"] / 1e9,
+            "measured_peak_gb": c["peak_gb"], "lower_s": rec["lower_s"], "card": card}))
+    check_launches("dry run", set())
+    log(f"10b done in {time.perf_counter() - t0:.1f} s")
+
+
 def same_state(a, b, what: str) -> None:
     from repro_torch.convert import wstate_to_numpy
 
@@ -3040,6 +3213,39 @@ def same_state(a, b, what: str) -> None:
     for k, x in wstate_to_numpy(a).items():
         if not np.array_equal(x, other[k]):
             raise AssertionError(f"{what}: state field {k} differs")
+
+
+def run_model_phases(dev, card: str, cells: subprocess.Popen, launches: dict,
+                     kernel_rows: dict, t_start: float) -> None:
+    """Phases 7-10, their launches added to ``launches`` and their kernel
+    rows to ``kernel_rows``."""
+    log(f"== phase 7: the LM training path, dense family {card}")
+    counts, train_rows = run_training(dev, card)
+    for k, c in counts.items():
+        launches[k] += c
+    keep = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "host_us", "launch_us")
+    for k in ("window_agg", "actor_sum"):
+        kernel_rows[k]["training"] = [{k_: r[k_] for k_ in keep} for r in train_rows[k]]
+        kernel_rows[k]["training_launches"] = counts[k]
+    log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 8: the training path of the moe, ssm, hybrid and audio families {card}")
+    counts, family_rows = run_other_families(dev, card)
+    for k, c in counts.items():
+        launches[k] += c
+    for k in ("window_agg", "actor_sum"):
+        kernel_rows[k]["other_families"] = [{k_: r[k_] for k_ in keep}
+                                            for r in family_rows[k]]
+        kernel_rows[k]["other_families_launches"] = counts[k]
+    log(f"other families done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 9: the serving path of every family {card}")
+    run_serving(dev, card)
+    log(f"serving done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 10: the dry run (pod_16x16 cells, device-free; calibration) {card}")
+    run_dry_run(card, cells)
+    log(f"dry run done at {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -3129,31 +3335,15 @@ def main() -> int:
     kernel_rows["window_agg"]["metrics_lattice_launches"] = counts["window_agg"]
     log(f"metrics done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== phase 7: the LM training path, dense family {card}")
-    counts, train_rows = run_training(dev, card)
-    for k, c in counts.items():
-        launches[k] += c
-    keep = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "host_us", "launch_us")
-    for k in ("window_agg", "actor_sum"):
-        kernel_rows[k]["training"] = [{k_: r[k_] for k_ in keep} for r in train_rows[k]]
-        kernel_rows[k]["training_launches"] = counts[k]
-    log(f"training done at {time.perf_counter() - t_start:.1f} s")
+    cells = start_dry_run_cells()  # phase 10a, device-free, alongside phases 7-9
+    try:
+        run_model_phases(dev, card, cells, launches, kernel_rows, t_start)
+    finally:
+        if cells.poll() is None:  # leave no process running
+            cells.kill()
+            cells.wait()
 
-    log(f"== phase 8: the training path of the moe, ssm, hybrid and audio families {card}")
-    counts, family_rows = run_other_families(dev, card)
-    for k, c in counts.items():
-        launches[k] += c
-    for k in ("window_agg", "actor_sum"):
-        kernel_rows[k]["other_families"] = [{k_: r[k_] for k_ in keep}
-                                            for r in family_rows[k]]
-        kernel_rows[k]["other_families_launches"] = counts[k]
-    log(f"other families done at {time.perf_counter() - t_start:.1f} s")
-
-    log(f"== phase 9: the serving path of every family {card}")
-    run_serving(dev, card)
-    log(f"serving done at {time.perf_counter() - t_start:.1f} s")
-
-    log(f"== phase 10: throughput {card}")
+    log(f"== phase 11: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")

@@ -20,7 +20,7 @@ from repro_torch.core.lattice import (
     Reduce, as_dtype, float_to_ordered_u32, lex_join, ordered_u32_to_float,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import lex_topk
+from repro_torch.kernels import ref
 
 NEG_INF = float("-inf")
 
@@ -220,7 +220,7 @@ class LWWReg:
 def _topk_join_sorted(vals_a, ids_a, vals_b, ids_b, k: int):
     """Join two top-k sets (desc-sorted, -inf padded) into the top-k of the
     union: a two-key stable sort, duplicates collapsed (set semantics)."""
-    return lex_topk(torch.cat([vals_a, vals_b], -1), torch.cat([ids_a, ids_b], -1), k)
+    return ref.lex_topk(torch.cat([vals_a, vals_b], -1), torch.cat([ids_a, ids_b], -1), k)
 
 
 @dataclasses.dataclass(frozen=True)

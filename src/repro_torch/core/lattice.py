@@ -45,6 +45,19 @@ def join_leaf(kind: Reduce, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown reduce kind {kind}")
 
 
+def lattice_dataclass(cls=None, /, **field_kinds):
+    """Make ``cls`` a frozen dataclass with per-field joins: its ``KINDS``
+    maps a field name to a ``Reduce`` or ``"custom"`` (handled by
+    ``cls.merge``), as the catalog's classes declare it by hand."""
+
+    def wrap(c):
+        c = dataclasses.dataclass(frozen=True)(c)
+        c.KINDS = dict(field_kinds)
+        return c
+
+    return wrap(cls) if cls is not None else wrap
+
+
 def field_kinds(obj) -> dict[str, Reduce | str]:
     """The per-field join map a CRDT class declares as ``KINDS``."""
     return obj.KINDS
@@ -158,6 +171,20 @@ def axis_reduce_leaf(kind: Reduce, x: torch.Tensor) -> torch.Tensor:
     if kind is Reduce.OR:
         return bitwise_or_reduce(x, 0)
     raise ValueError(f"unknown reduce kind {kind}")
+
+
+def axis_join(state, mesh):
+    """The lattice join of a state stacked over the replicas of ``mesh``
+    (a ``StackMesh``), handed back to every replica: an elementwise lattice
+    reduces each field over the stack, a custom one joins the stack
+    log-depth (the JAX package's collective join across a mesh axis)."""
+    kinds = field_kinds(state)
+    if all(isinstance(k, Reduce) for k in kinds.values()) and not hasattr(state, "merge"):
+        joined = type(state)(**{n: axis_reduce_leaf(k, getattr(state, n))
+                                for n, k in kinds.items()})
+    else:
+        joined = join_stacked(mesh.all_gather(state), merge_fn=join)
+    return mesh.replicate(joined)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from repro_torch.core.lattice import (
 )
 from repro_torch.core.window import Tumbling, WindowAssigner, expand_events
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import lex_sort
+from repro_torch.kernels import ref
 
 NO_WID = -1
 I32_MAX = 2**31 - 1
@@ -639,7 +639,7 @@ def shard_topk_read(spec: WSpec, state: WState, wid: int, key_table: torch.Tenso
         cv, ci = torch.sort(masked, dim=1, descending=True, stable=True)
         cv, ci = cv[:, :k], ci[:, :k]
         ck = torch.where(cv > float("-inf"), key_table.gather(1, ci), num_keys)
-        sv, sk = lex_sort(-mesh.all_gather(cv).reshape(-1), mesh.all_gather(ck).reshape(-1))
+        sv, sk = ref.lex_sort(-mesh.all_gather(cv).reshape(-1), mesh.all_gather(ck).reshape(-1))
         top = (-sv[:k], sk[:k])
     every = ok.all().expand(S)
     return (top[0].expand(S, k), top[1].expand(S, k)), every

@@ -8,10 +8,18 @@ to every row (one ``crdt_merge`` launch, optionally gated), and
 ``all_to_all`` is a ``[S_src, S_dst, ...]`` transpose.
 The dataplane reaches replicas only through this interface, so a
 multi-device version can take its place without touching the dataplane.
+
+The production meshes of the dry run (:func:`make_production_mesh`,
+:func:`make_mesh`) are the JAX package's shapes and axis names as
+device meshes over a fake process group: rank 0 of 256 or 512 ranks
+that move no data, the counterpart of JAX's forced host devices.
+:func:`fake_world` scopes the group, so nothing outlives the block.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 
 import torch
 
@@ -59,3 +67,52 @@ def make_data_mesh(num_partitions: int, device="cuda") -> StackMesh:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return StackMesh(num_partitions, device)
+
+
+# --------------------------------------------------------------------------
+# the dry run's meshes (fake process group, no devices)
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """A fake process group of ``size`` ranks (this process is rank 0)
+    for the block, destroyed on exit.  Raises if a group is already up."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the process group
+    that is up, whose world must be the mesh's size (:func:`fake_world`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"make_mesh{tuple(shape)} needs a process group of {n} ranks "
+                           "(with fake_world({n}): ...)")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape), mesh_dim_names=tuple(axes))
+
+
+def production_shape(multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """Single pod: (data=16, model=16), 256 ranks.  Multi-pod: (pod=2,
+    data=16, model=16), 512 ranks, the DCN/ICI hierarchy on the leading
+    axis (``repro.launch.mesh.make_production_mesh``)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh of :func:`production_shape`, inside a
+    :func:`fake_world` of its size."""
+    return make_mesh(*production_shape(multi_pod))

@@ -44,8 +44,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import AttnDims
 from repro_torch.models.common import (
-    embed, embed_init, init_rmsnorm, rmsnorm, tree_leaves, tree_map, unembed_logits,
-    unembed_loss,
+    BATCH, embed, embed_init, fsdp, init_rmsnorm, new_stacked, residual, rmsnorm, shard,
+    tree_leaves, tree_map, unembed_logits, unembed_loss, unshard_dim0,
 )
 from repro_torch.models.mlp import init_mlp, mlp_ffn
 from repro_torch.models.moe import MoEDims
@@ -117,9 +117,9 @@ def init_dense_block(key, cfg: ArchConfig, dtype) -> dict:
 
 
 def dense_block(p, cfg: ArchConfig, h, *, q_chunk=512):
-    h = h + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
-                            q_chunk=q_chunk)
-    h = h + mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+    h = residual(h, attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                    q_chunk=q_chunk))
+    h = residual(h, mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)))
     return h
 
 
@@ -135,9 +135,9 @@ def init_moe_block(key, cfg: ArchConfig, dtype) -> dict:
 
 
 def moe_block(p, cfg: ArchConfig, h, *, q_chunk=512):
-    h = h + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
-                            q_chunk=q_chunk)
-    h = h + moe_lib.moe_ffn(p["moe"], moe_dims(cfg), rmsnorm(h, p["ln2"], cfg.norm_eps))
+    h = residual(h, attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                    q_chunk=q_chunk))
+    h = residual(h, moe_lib.moe_ffn(p["moe"], moe_dims(cfg), rmsnorm(h, p["ln2"], cfg.norm_eps)))
     return h
 
 
@@ -154,7 +154,7 @@ def mamba_block(p, cfg: ArchConfig, h, state=None, conv=None, chunk=256):
         p["mamba"], ssm_dims(cfg), rmsnorm(h, p["ln"], cfg.norm_eps),
         state=state, conv_prev=conv, chunk=chunk,
     )
-    return h + y, st
+    return residual(h, y), st
 
 
 # --------------------------------------------------------------------------
@@ -254,20 +254,35 @@ def init_params(cfg: ArchConfig, key: prng.Key, dtype=torch.bfloat16) -> dict:
 
 def _layers(stack_params) -> list:
     """The layers of a stacked tree, in order.  The stack is unbound once,
-    so its gradient is one stack of the layers' gradients."""
-    layers = tree_map(lambda x: x.unbind(0), stack_params)
+    so its gradient is one stack of the layers' gradients.  Under a
+    dry-run mesh a leaf sharded along its layer axis (a right-aligned spec
+    that reaches it, as the MoE shared expert's) is gathered first: DTensor
+    cannot unbind a sharded dim."""
+    layers = tree_map(lambda x: unshard_dim0(x).unbind(0), stack_params)
     n = tree_leaves(stack_params)[0].shape[0]
     return [tree_map(lambda xs: xs[i], layers) for i in range(n)]
 
 
+def _gathered(stack_params):
+    """:func:`_layers`, each layer's parameters gathered at use under a
+    dry-run mesh (``common.fsdp``)."""
+    return (fsdp(p) for p in _layers(stack_params))
+
+
 def _scan_layers(stack_params, body, h, remat: bool = True):
     """``body`` over the layers of a stacked tree, in order, each layer
-    rematerialised in the backward pass when ``remat``."""
+    rematerialised in the backward pass when ``remat`` (its parameters
+    gathered inside, under a dry-run mesh, so the recompute gathers them
+    again)."""
+
+    def layer(hh, p):
+        return body(hh, fsdp(p))
+
     for p_l in _layers(stack_params):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(body, h, p_l, use_reentrant=False)
+            h = checkpoint(layer, h, p_l, use_reentrant=False)
         else:
-            h = body(h, p_l)
+            h = layer(h, p_l)
     return h
 
 
@@ -296,14 +311,15 @@ def _decoder_stack(cfg: ArchConfig, params, h, *, q_chunk=512, ssm_chunk=256, re
 
         h = _scan_layers(params["layers"], body, h, remat)
     elif fam == "hybrid":
-        shared = params["shared_attn"]
+        shared = fsdp(params["shared_attn"])
 
         def macro(hh, p):
             for pm in _layers(p):
                 hh, _ = mamba_block(pm, cfg, hh, chunk=ssm_chunk)
-            hh = hh + attn.attn_train(shared["attn"], attn_dims(cfg),
-                                      rmsnorm(hh, shared["ln"], cfg.norm_eps), q_chunk=q_chunk)
-            return hh + mlp_ffn(shared["mlp"], rmsnorm(hh, shared["ln2"], cfg.norm_eps))
+            hh = residual(hh, attn.attn_train(shared["attn"], attn_dims(cfg),
+                                              rmsnorm(hh, shared["ln"], cfg.norm_eps),
+                                              q_chunk=q_chunk))
+            return residual(hh, mlp_ffn(shared["mlp"], rmsnorm(hh, shared["ln2"], cfg.norm_eps)))
 
         h = _scan_layers(params["layers"], macro, h, remat)
         if "tail" in params:
@@ -323,12 +339,12 @@ def _encoder(cfg: ArchConfig, params, enc_embeds, *, q_chunk=512, remat=True):
     bidir = attn_dims(cfg, causal=False)
 
     def enc_body(hh, p):
-        hh = hh + attn.attn_train(p["attn"], bidir, rmsnorm(hh, p["ln1"], cfg.norm_eps),
-                                  q_chunk=q_chunk)
-        return hh + mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        hh = residual(hh, attn.attn_train(p["attn"], bidir, rmsnorm(hh, p["ln1"], cfg.norm_eps),
+                                          q_chunk=q_chunk))
+        return residual(hh, mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps)))
 
-    enc_h = _scan_layers(params["enc_layers"], enc_body, enc_embeds.to(params["embed"].dtype),
-                         remat)
+    enc_h = shard(enc_embeds.to(params["embed"].dtype), BATCH, None, None)
+    enc_h = _scan_layers(params["enc_layers"], enc_body, enc_h, remat)
     return rmsnorm(enc_h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -339,15 +355,15 @@ def _encoder_decoder(cfg: ArchConfig, params, batch: dict, *, q_chunk=512, remat
     bidir = attn_dims(cfg, causal=False)  # the encoder's and the cross-attention's
 
     def dec_body(hh, p):
-        hh = hh + attn.attn_train(p["attn"], attn_dims(cfg), rmsnorm(hh, p["ln1"], cfg.norm_eps),
-                                  q_chunk=q_chunk)
+        hh = residual(hh, attn.attn_train(p["attn"], attn_dims(cfg),
+                                          rmsnorm(hh, p["ln1"], cfg.norm_eps), q_chunk=q_chunk))
         kv = attn.cross_kv(p["xattn"], bidir, enc_h)
-        hh = hh + attn.attn_cross(p["xattn"], bidir, rmsnorm(hh, p["lnx"], cfg.norm_eps), kv,
-                                  q_chunk=q_chunk)
-        return hh + mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        hh = residual(hh, attn.attn_cross(p["xattn"], bidir, rmsnorm(hh, p["lnx"], cfg.norm_eps),
+                                          kv, q_chunk=q_chunk))
+        return residual(hh, mlp_ffn(p["mlp"], rmsnorm(hh, p["ln2"], cfg.norm_eps)))
 
-    return _scan_layers(params["layers"], dec_body, embed(batch["tokens"], params["embed"]),
-                        remat)
+    h = shard(embed(batch["tokens"], params["embed"]), BATCH, None, None)
+    return _scan_layers(params["layers"], dec_body, h, remat)
 
 
 def forward_loss(
@@ -363,15 +379,20 @@ def forward_loss(
     enc_embeds [B, S_enc, D] for audio).  Returns the mean next-token NLL.
     No MoE auxiliary loss is added: the JAX docstring promises one, but its
     code adds none, and the port follows the code."""
-    tokens = batch["tokens"]
+    tokens = shard(batch["tokens"], BATCH, None)
     if cfg.is_enc_dec:
-        h = _encoder_decoder(cfg, params, batch, q_chunk=q_chunk, remat=remat)
+        h = _encoder_decoder(cfg, params, dict(batch, tokens=tokens), q_chunk=q_chunk,
+                             remat=remat)
     else:
         h = embed(tokens, params["embed"])
         vision = cfg.frontend == "vision" and "prefix_embeds" in batch
         if vision:
+            # the embedding's partial sums reduced before the concatenation
+            # (DTensor cannot join them to the prefix, as GSPMD does)
+            h = shard(h, BATCH, None, None)
             pre = batch["prefix_embeds"].to(h.dtype)  # [B, P, D]
             h = torch.cat([pre, h], dim=1)
+        h = shard(h, BATCH, None, None)
         h = _decoder_stack(cfg, params, h, q_chunk=q_chunk, ssm_chunk=ssm_chunk, remat=remat)
         if vision:
             h = h[:, batch["prefix_embeds"].shape[1]:]
@@ -458,7 +479,7 @@ def _put(stack, idx: tuple, lead: tuple, tree):
     layers, made at the first write (``jax.lax.scan``'s stacked outputs,
     without a second copy of them).  Returns the stack."""
     if stack is None:
-        stack = tree_map(lambda x: x.new_empty((*lead, *x.shape)), tree)
+        stack = tree_map(lambda x: new_stacked(x, lead), tree)
     tree_map(lambda s_, x: s_[idx].copy_(x), stack, tree)
     return stack
 
@@ -474,8 +495,8 @@ def _block_prefill(p, cfg: ArchConfig, h, q_chunk: int):
     """A dense or MoE block over the prompt; returns (h, its kv)."""
     a, kv = attn.attn_prefill(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
                               q_chunk=q_chunk)
-    h = h + a
-    return h + _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps)), kv
+    h = residual(h, a)
+    return residual(h, _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps))), kv
 
 
 def _block_decode(p, cfg: ArchConfig, h, c, pos):
@@ -483,16 +504,16 @@ def _block_decode(p, cfg: ArchConfig, h, c, pos):
     (written in place)."""
     a, _ = attn.attn_decode(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps), c,
                             pos)
-    h = h + a
-    return h + _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps))
+    h = residual(h, a)
+    return residual(h, _ffn(p, cfg, rmsnorm(h, p["ln2"], cfg.norm_eps)))
 
 
 def _shared_block(shared, cfg: ArchConfig, h, attend):
     """The hybrid's shared attention + MLP block; ``attend(x)`` returns
     the attention's (out, kv)."""
     a, kv = attend(rmsnorm(h, shared["ln"], cfg.norm_eps))
-    h = h + a
-    return h + mlp_ffn(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps)), kv
+    h = residual(h, a)
+    return residual(h, mlp_ffn(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps))), kv
 
 
 def _mamba_decode(p, cfg: ArchConfig, h, st, cv):
@@ -523,7 +544,7 @@ def decode_step(cfg: ArchConfig, params, cache, token: torch.Tensor, position, *
     ``position`` (a Python int or an integer tensor on the device) is not
     read back to the host.  ``enc_kv``: the audio family's cross-attention
     keys and values from :func:`prefill_encdec`."""
-    h = embed(token, params["embed"])
+    h = shard(embed(token, params["embed"]), BATCH, None, None)
     pos = attn.position_tensor(position, h.device)
     fam = cfg.family
 
@@ -557,10 +578,10 @@ def decode_step(cfg: ArchConfig, params, cache, token: torch.Tensor, position, *
             a, _ = attn.attn_decode(p["attn"], attn_dims(cfg),
                                     rmsnorm(h, p["ln1"], cfg.norm_eps), _at(cache["self"], i),
                                     pos)
-            h = h + a
-            h = h + attn.attn_cross(p["xattn"], xdims, rmsnorm(h, p["lnx"], cfg.norm_eps),
-                                    _at(enc_kv, i), q_chunk=1)
-            h = h + mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+            h = residual(h, a)
+            h = residual(h, attn.attn_cross(p["xattn"], xdims, rmsnorm(h, p["lnx"], cfg.norm_eps),
+                                            _at(enc_kv, i), q_chunk=1))
+            h = residual(h, mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)))
     else:
         raise ValueError(fam)
     return _last_logits(cfg, params, h), cache
@@ -576,21 +597,23 @@ def prefill(cfg: ArchConfig, params, tokens, *, prefix_embeds=None, q_chunk: int
     ``prefix_embeds`` [B, P, D]: stub modality frontend output (vlm)
     prepended before the token embeddings; the KV cache then covers P + S
     positions."""
-    h = embed(tokens, params["embed"])
+    h = embed(shard(tokens, BATCH, None), params["embed"])
     if prefix_embeds is not None:
+        h = shard(h, BATCH, None, None)  # as in forward_loss
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    h = shard(h, BATCH, None, None)
     fam = cfg.family
     cache = None
 
     if fam in ("dense", "vlm") or (fam == "moe" and cfg.moe_every == 1):
         n = cfg.n_layers // (cfg.moe_every if fam == "moe" else 1)
-        for i, p in enumerate(_layers(params["layers"])):
+        for i, p in enumerate(_gathered(params["layers"])):
             h, kv = _block_prefill(p, cfg, h, q_chunk)
             cache = _put(cache, (i,), (n,), kv)
     elif fam == "moe":
         n, every = cfg.n_layers // cfg.moe_every, cfg.moe_every
         dense = moe = None
-        for i, p in enumerate(_layers(params["layers"])):
+        for i, p in enumerate(_gathered(params["layers"])):
             for j, pd in enumerate(_layers(p["dense"])):
                 h, kv = _block_prefill(pd, cfg, h, q_chunk)
                 dense = _put(dense, (i, j), (n, every - 1), kv)
@@ -598,15 +621,15 @@ def prefill(cfg: ArchConfig, params, tokens, *, prefix_embeds=None, q_chunk: int
             moe = _put(moe, (i,), (n,), kv)
         cache = {"dense": dense, "moe": moe}
     elif fam == "ssm":
-        for i, p in enumerate(_layers(params["layers"])):
+        for i, p in enumerate(_gathered(params["layers"])):
             h, (st, cv) = mamba_block(p, cfg, h, chunk=ssm_chunk)
             cache = _put(cache, (i,), (cfg.n_layers,), {"ssm": st, "conv": cv})
     elif fam == "hybrid":
-        shared = params["shared_attn"]
+        shared = fsdp(params["shared_attn"])
         every = cfg.hybrid_attn_every
         n_macro = cfg.n_layers // every
         states = kvs = None
-        for i, p in enumerate(_layers(params["layers"])):
+        for i, p in enumerate(_gathered(params["layers"])):
             for j, pm in enumerate(_layers(p)):
                 h, (st, cv) = mamba_block(pm, cfg, h, chunk=ssm_chunk)
                 states = _put(states, (i, j), (n_macro, every), {"ssm": st, "conv": cv})
@@ -617,7 +640,7 @@ def prefill(cfg: ArchConfig, params, tokens, *, prefix_embeds=None, q_chunk: int
         if "tail" in params:
             tail = None
             n_tail = cfg.n_layers % every
-            for i, p in enumerate(_layers(params["tail"])):
+            for i, p in enumerate(_gathered(params["tail"])):
                 h, (st, cv) = mamba_block(p, cfg, h, chunk=ssm_chunk)
                 tail = _put(tail, (i,), (n_tail,), {"tail_ssm": st, "tail_conv": cv})
             cache |= tail
@@ -635,17 +658,19 @@ def prefill_encdec(cfg: ArchConfig, params, enc_embeds, dec_tokens, *, q_chunk: 
     decoder layer's ``cross_kv`` of the encoder output, stacked)."""
     enc_h = _encoder(cfg, params, enc_embeds, q_chunk=q_chunk, remat=False)
     bidir = attn_dims(cfg, causal=False)  # the cross-attention's
-    h = embed(dec_tokens, params["embed"])
+    # the vocab-parallel embedding's partial sums reduced before the norm
+    # (DTensor cannot normalise them in place, as GSPMD does)
+    h = shard(embed(dec_tokens, params["embed"]), BATCH, None, None)
     n = cfg.dec_layers
     self_kv = enc_kv = None
-    for i, p in enumerate(_layers(params["layers"])):
+    for i, p in enumerate(_gathered(params["layers"])):
         a, kv = attn.attn_prefill(p["attn"], attn_dims(cfg), rmsnorm(h, p["ln1"], cfg.norm_eps),
                                   q_chunk=q_chunk)
-        h = h + a
+        h = residual(h, a)
         ekv = attn.cross_kv(p["xattn"], bidir, enc_h)
-        h = h + attn.attn_cross(p["xattn"], bidir, rmsnorm(h, p["lnx"], cfg.norm_eps), ekv,
-                                q_chunk=q_chunk)
-        h = h + mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+        h = residual(h, attn.attn_cross(p["xattn"], bidir, rmsnorm(h, p["lnx"], cfg.norm_eps), ekv,
+                                        q_chunk=q_chunk))
+        h = residual(h, mlp_ffn(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)))
         self_kv = _put(self_kv, (i,), (n,), kv)
         enc_kv = _put(enc_kv, (i,), (n,), ekv)
     return _last_logits(cfg, params, h), {"self": self_kv}, enc_kv

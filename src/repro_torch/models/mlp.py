@@ -1,13 +1,13 @@
-"""Dense FFN (SwiGLU), the train path of ``repro.models.mlp``.
+"""Dense FFN (SwiGLU), port of ``repro.models.mlp``.
 
-The JAX package's ``S == 1`` branch differs only in its sharding
-constraints, which are the identity on one card."""
+Its ``S == 1`` (decode) branch differs only in its sharding constraints,
+which are the identity outside a dry-run mesh."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import BATCH, dense_init, shard
 from repro_torch.streaming import prng
 
 
@@ -21,5 +21,14 @@ def init_mlp(key, d_model: int, d_ff: int, dtype) -> dict:
 
 
 def mlp_ffn(params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    # TP: d_ff over model, and batch over (pod, data).  Decode (S == 1):
+    # the 2D weight-stationary plan keeps the residual stream D-sharded over
+    # `data`, so both matmuls contract sharded dims in place (the gate's and
+    # the up projection's partial sums reduced before the SiLU)
+    decode = x.ndim == 3 and x.shape[1] == 1
+    if decode:
+        x = shard(x, None, None, ("data",))
+    spec = (*((None,) * (x.ndim - 1) if decode or x.ndim != 3 else (BATCH, None)), "model")
+    h = F.silu(shard(x @ params["w_gate"], *spec)) * shard(x @ params["w_up"], *spec)
+    y = h @ params["w_down"]
+    return shard(y, None, None, ("data",)) if decode else y

@@ -15,7 +15,8 @@ As in the JAX package:
 
 One card has no ``pod``/``data`` axis, so there is one token group
 (``G = 1``), and the decode-time path (``_moe_ffn_decode``, one token a
-sequence) computes as ``moe_ffn`` does.  Dispatch and combine move rows by
+sequence) computes as ``moe_ffn`` does; a dry-run mesh groups the tokens
+by batch shard, as the JAX package does.  Dispatch and combine move rows by
 :func:`gather_rows`, whose backward is a gather too: the inverse map
 (each token's at most K slots, each slot's one token) exists, so no step
 of the layer, forward or backward, adds by atomics, and a step on the
@@ -30,7 +31,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import (
+    axis_size, dense_init, grad_placed, is_sharded, local_rank, mesh_axes, per_shard, shard,
+)
 from repro_torch.models.mlp import init_mlp, mlp_ffn
 from repro_torch.streaming import prng
 
@@ -170,41 +173,49 @@ def route(probs: torch.Tensor, dims: MoEDims, C: int) -> dict:
 
 
 def moe_ffn(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D], one token group.
+    """x: [B, S, D] -> [B, S, D].
 
     The JAX package's dispatch and combine as slot-side row moves: the
     buffer slot ``s`` reads token ``tok_of_slot[s]``, and token ``t`` adds
     the gated outputs of its kept slots.  One token a sequence (``S ==
-    1``) is decode, :func:`_moe_ffn_decode`, as in the JAX package.  No
-    auxiliary load-balancing term is added here or in ``lm.forward_loss``:
-    the JAX ``forward_loss`` docstring promises one, but its code adds
-    none, and the port follows the code (:func:`aux_load_balance_loss` is
-    there to call)."""
+    1``) is decode, :func:`_moe_ffn_decode`, as in the JAX package.  Under
+    a dry-run mesh the tokens split into one group a batch shard, as the
+    JAX package's GShard-style groups (:func:`_grouped`).  No auxiliary
+    load-balancing term is added here or in ``lm.forward_loss``: the JAX
+    ``forward_loss`` docstring promises one, but its code adds none, and
+    the port follows the code (:func:`aux_load_balance_loss` is there to
+    call)."""
     B, S, D = x.shape
     if S == 1:
         return _moe_ffn_decode(params, dims, x)
+    G = _dp_groups() if is_sharded(x) else 1
+    if G > 1 and (B * S) % G == 0 and B % G == 0:
+        return _grouped(params, dims, x, G)
     return _one_group(params, dims, x.reshape(B * S, D)).reshape(B, S, D)
 
 
 def _moe_ffn_decode(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:
     """Decode-mode MoE (``S == 1``): the ``B`` tokens as one group with
     ``C = capacity(dims, B)``.  The JAX package's decode path differs from
-    its ``moe_ffn`` only in how a mesh shards it, so on one card both are
-    :func:`_one_group`; its combine, a scatter-add in slot order on XLA's
-    CPU, is each token's gather of its K slots added in slot order."""
+    its ``moe_ffn`` only in how a mesh shards it (the residual D-sharded
+    over ``data``, the buffer's experts over ``model``); its combine, a
+    scatter-add in slot order on XLA's CPU, is each token's gather of its K
+    slots added in slot order."""
     B, S, D = x.shape
-    return _one_group(params, dims, x.reshape(B * S, D)).reshape(B, S, D)
+    xf = shard(x.reshape(B * S, D), None, ("data",))
+    return _one_group(params, dims, xf, decode=True).reshape(B, S, D)
 
 
-def _one_group(params, dims: MoEDims, xf: torch.Tensor) -> torch.Tensor:
-    """Steps 1-7 over the ``T`` tokens ``xf [T, D]`` as one group."""
+def _dispatch(router, dims: MoEDims, xf: torch.Tensor, C: int):
+    """Steps 1-5 over the ``T`` tokens ``xf [T, D]`` as one group: the
+    buffer ``[E, C, D]``, the gate of each slot ``[E*C, 1]`` and the maps
+    the combine reads (``slot_of_token``, ``pos_of_slot``)."""
     T, D = xf.shape
     E, K = dims.n_experts, dims.top_k
-    C = capacity(dims, T)
 
     # 1-4. routing (f32) and the slot maps
-    probs = torch.softmax(xf.to(torch.float32) @ params["router"], dim=-1)
-    r = route(probs, dims, C)
+    probs = torch.softmax(xf.to(torch.float32) @ router, dim=-1)
+    r = _route(probs, dims, C)
 
     # the gate of each slot, from the differentiable gates by the same maps
     gate_of_slot = gather_rows(r["gate_vals"].reshape(T * K, 1), r["pair_of_slot"],
@@ -212,24 +223,136 @@ def _one_group(params, dims: MoEDims, xf: torch.Tensor) -> torch.Tensor:
 
     # 5. dispatch = one gather (empty slots read the zero row)
     buf = gather_rows(xf, r["tok_of_slot"], r["slot_of_token"]).reshape(E, C, D)
+    return buf, gate_of_slot, r["slot_of_token"], r["pos_of_slot"]
 
-    # 6. batched expert FFN (SwiGLU)
-    g_ = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
-    u_ = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-    h = F.silu(g_) * u_
-    y = torch.einsum("ecf,efd->ecd", h, params["w_down"])
 
-    # 7. combine: each token gathers its K slots (dropped pairs read the
-    # zero row) and adds them in slot order
-    y_flat = (y.reshape(E * C, D) * gate_of_slot).to(xf.dtype)
-    parts = gather_rows(y_flat, r["slot_of_token"], r["pos_of_slot"])  # [T, K, D]
+def _route(probs: torch.Tensor, dims: MoEDims, C: int) -> dict:
+    """:func:`route`; under a dry-run mesh over the replicated
+    probabilities, on each device (DTensor has no strategy for its
+    ``searchsorted``)."""
+    if not is_sharded(probs):
+        return route(probs, dims, C)
+    probs = shard(probs, None, None)
+    keys = ("gate_vals", "gate_idx", "keep", "tok_of_slot", "pair_of_slot", "slot_of_pair",
+            "slot_of_token", "pos_of_slot")
+    out = per_shard(lambda p: tuple(route(p, dims, C)[k] for k in keys),
+                    (probs.placements,) * len(keys), probs)
+    return dict(zip(keys, out))
+
+
+def _experts(params, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    """6. The batched expert FFN (SwiGLU) over ``[E, C, D]`` (or ``[G, E,
+    C, D]``, groups over the batch shards), experts over ``model`` under a
+    dry-run mesh, and ``D`` over ``data`` in decode (the JAX package's 2D
+    plan).  Grouped under a mesh, each device runs its groups' slots of its
+    experts, the weights gathered over ``data`` (FSDP) and their gradients
+    summed back over the groups."""
+    if x.ndim == 4:
+        spec, ein = (("pod", "data"), "model", None, None), "g"
+    else:
+        spec, ein = ("model", None, ("data",) if decode else None), ""
+    x = shard(x, *spec)  # EP over model
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+
+    def ffn(x, w_gate, w_up, w_down):
+        # the partial sums of a D split over `data` (decode) reduced before the SiLU
+        g_ = shard(torch.einsum(f"{ein}ecd,edf->{ein}ecf", x, w_gate), *spec[:-1], None)
+        u_ = shard(torch.einsum(f"{ein}ecd,edf->{ein}ecf", x, w_up), *spec[:-1], None)
+        h = F.silu(g_) * u_
+        y = torch.einsum(f"{ein}ecf,efd->{ein}ecd", h, w_down)
+        return shard(y, *spec)
+
+    if not (ein and is_sharded(x)):
+        return ffn(x, *w)
+    from torch.distributed.tensor import Partial
+
+    w = tuple(shard(t, "model", None, None) for t in w)
+    grad = tuple(Partial() if n != "model" and p.is_shard() else q
+                 for n, p, q in zip(mesh_axes(), x.placements, w[0].placements))
+    return per_shard(ffn, x.placements, x, *w, grad_placements=(None, grad, grad, grad))
+
+
+def _combine(y_flat: torch.Tensor, slot_of_token: torch.Tensor, pos_of_slot: torch.Tensor,
+             lo: int = 0) -> torch.Tensor:
+    """7. Each token gathers its K slots (dropped pairs, and slots outside
+    ``[lo, lo + len(y_flat))``, read the zero row) and adds them in slot
+    order: ``[T, D]``."""
+    n = y_flat.shape[0]
+    idx = slot_of_token - lo if lo else slot_of_token
+    if lo or n < pos_of_slot.shape[0]:
+        idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    parts = gather_rows(y_flat, idx, pos_of_slot[lo:lo + n])  # [T, K, D]
     out = parts[:, 0]
-    for k in range(1, K):
+    for k in range(1, parts.shape[1]):
         out = out + parts[:, k]
+    return out
 
+
+def _one_group(params, dims: MoEDims, xf: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    """Steps 1-7 over the ``T`` tokens ``xf [T, D]`` as one group."""
+    T, D = xf.shape
+    E = dims.n_experts
+    C = capacity(dims, T)
+    buf, gate_of_slot, slot_of_token, pos_of_slot = _dispatch(params["router"], dims, xf, C)
+    y = _experts(params, buf, decode)
+    y_flat = (y.reshape(E * C, D) * gate_of_slot).to(xf.dtype)
+    out = _combine(y_flat, slot_of_token, pos_of_slot)
+    if decode:
+        out = shard(out, None, ("data",))
     if dims.shared_expert:
         out = out + mlp_ffn(params["shared"], xf)
     return out
+
+
+def _dp_groups() -> int:
+    """The batch shards of the dry-run mesh (pod x data); 1 outside one."""
+    return axis_size("pod") * axis_size("data")
+
+
+def _grouped(params, dims: MoEDims, x: torch.Tensor, G: int) -> torch.Tensor:
+    """``moe_ffn`` under a dry-run mesh: ``G`` groups of ``Tl`` tokens,
+    each routed, dispatched and combined on the device that holds it
+    (JAX's ``shard_map``), the expert FFN sharded over ``model`` between.
+    The combine gathers a device's own experts' slots, and the partial
+    sums over ``model`` reduce in one all-reduce (the JAX psum)."""
+    B, S, D = x.shape
+    E = dims.n_experts
+    Tl = B * S // G
+    C = capacity(dims, Tl)
+    from torch.distributed.tensor import Partial
+
+    # the tokens placed by batch before they split into groups (DTensor
+    # would split a batch sharded over more axes than the groups unevenly)
+    x = shard(x, ("pod", "data"), None, None)
+    xg = shard(x.reshape(G, Tl, D), ("pod", "data"), None, None)
+    router = shard(params["router"], None, None)
+
+    def dispatch(xl, rl):
+        outs = [_dispatch(rl, dims, xl[g], C) for g in range(xl.shape[0])]
+        buf, gate, sot, pos = (torch.stack(o) for o in zip(*outs))
+        return buf, gate.reshape(*buf.shape[:3], 1), sot, pos
+
+    pl = xg.placements
+    # the router's gradient: each group's part, summed over the batch shards
+    r_grad = tuple(Partial() if p.is_shard() else p for p in pl)
+    buf, gate_of_slot, slot_of_token, pos_of_slot = per_shard(
+        dispatch, (pl,) * 4, xg, router, grad_placements=(None, r_grad))
+    y = _experts(params, buf)  # [G, E, C, D]
+    gate = shard(gate_of_slot, ("pod", "data"), "model", None, None)  # [G, E, C, 1]
+
+    def combine(yl, gl, sl, ps):
+        g, e, c, _ = yl.shape
+        y_flat = (yl * gl).reshape(g, e * c, D).to(x.dtype)  # this device's experts' slots
+        lo = local_rank("model") * e * c
+        return torch.stack([_combine(y_flat[i], sl[i], ps[i], lo) for i in range(g)])
+
+    part = tuple(Partial() if n == "model" else p for n, p in zip(mesh_axes(), pl))
+    out = per_shard(combine, part, y, gate, slot_of_token, pos_of_slot)
+    out = shard(out, ("pod", "data"), None, None)
+    if dims.shared_expert:
+        out = out + mlp_ffn(params["shared"], xg)
+    # the gradient that comes back placed by batch, so that it splits by group
+    return grad_placed(out.reshape(B, S, D))
 
 
 def aux_load_balance_loss(params, dims: MoEDims, x: torch.Tensor) -> torch.Tensor:

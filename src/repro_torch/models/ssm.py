@@ -23,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, rmsnorm
+from repro_torch.models.common import (
+    dense_init, is_sharded, per_shard, redistribute_to, reduced, rmsnorm, shard, shard_like,
+)
 from repro_torch.streaming import prng
 
 
@@ -99,8 +101,27 @@ def chunked_linear_scan(a, b, h0, chunk: int):
     """h_t = a_t * h_{t-1} + b_t along axis=1 (time).
 
     a, b: [B, L, ...] (``a`` may broadcast against ``b`` in the trailing
-    axes); h0: [B, ...].  Returns (h_all [B, L, ...], h_last).
+    axes); h0: [B, ...].  Returns (h_all [B, L, ...], h_last).  Under a
+    dry-run mesh each device scans its own (batch, channel) shard: the
+    recurrence runs along time, which no mesh axis splits, and the
+    scan's thousands of small ops would each take a DTensor dispatch.
     """
+    if is_sharded(b):
+        from torch.distributed.tensor import Shard
+
+        b = reduced(b)  # partial sums (a decode's D-sharded step) reduced first
+        a = shard_like(a, b)
+        h_pl = tuple(Shard(p.dim - 1) if p.is_shard() and p.dim >= 2 else p
+                     for p in b.placements)
+        if any(p.is_shard(1) for p in b.placements):
+            raise ValueError("the scan's time axis cannot be sharded")
+        h0 = redistribute_to(h0, h_pl)
+        return per_shard(lambda a_, b_, h_: _chunked_linear_scan(a_, b_, h_, chunk),
+                         (b.placements, h_pl), a, b, h0)
+    return _chunked_linear_scan(a, b, h0, chunk)
+
+
+def _chunked_linear_scan(a, b, h0, chunk: int):
     L = a.shape[1]
     cl = min(chunk, L)
     if L % cl != 0:
@@ -197,13 +218,20 @@ def init_mamba(key, dims: SSMDims, dtype) -> dict:
 def _mamba1_abx(params, dims: SSMDims, xc):
     """Per-step SSM coefficients from the conv output.  xc: [B, L, Di]."""
     N, R = dims.d_state, dims.dt_rank
-    proj = xc @ params["x_proj"]  # [B, L, R+2N]
+    # the projection's partial sums over `model` reduced before the split
+    proj = shard(xc @ params["x_proj"], ("pod", "data"), None, None)  # [B, L, R+2N]
     dt_r, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_r.to(torch.float32) @ params["dt_proj"] + params["dt_bias"])  # [B, L, Di]
     A = -torch.exp(params["A_log"])  # [Di, N]
     a = torch.exp(dt[..., None] * A[None, None])  # [B, L, Di, N]
     bx = (dt * xc.to(torch.float32))[..., None] * Bc.to(torch.float32)[..., None, :]
     return a, bx, Cc
+
+
+def _zeros_state(bx: torch.Tensor, shape: tuple, f32: dict) -> torch.Tensor:
+    """A zero initial state; under a dry-run mesh placed as ``bx``'s first
+    step (``bx[:, 0]``)."""
+    return torch.zeros_like(bx[:, 0]) if is_sharded(bx) else torch.zeros(shape, **f32)
 
 
 def mamba_forward(params, dims: SSMDims, x, state=None, conv_prev=None, chunk: int = 256):
@@ -215,13 +243,19 @@ def mamba_forward(params, dims: SSMDims, x, state=None, conv_prev=None, chunk: i
     B, L, D = x.shape
     Di, N = dims.d_inner, dims.d_state
     f32 = dict(dtype=torch.float32, device=x.device)
+    decode = L == 1
+    if decode:
+        # decode-2D plan: contract D over `data` in place instead of
+        # gathering FSDP shards of in/out_proj per token
+        x = shard(x, None, None, ("data",))
     xi, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)  # [B, L, Di] each
+    xi = shard(xi, ("pod", "data"), None, "model")
     xc, conv_tail = causal_conv1d(xi, params["conv_w"], conv_prev)
     xc = F.silu(xc)
 
     if dims.version == 1:
         a, bx, Cc = _mamba1_abx(params, dims, xc)
-        h0 = state if state is not None else torch.zeros((B, Di, N), **f32)
+        h0 = state if state is not None else _zeros_state(bx, (B, Di, N), f32)
         hs, h_last = chunked_linear_scan(a, bx, h0, chunk)
         y = torch.einsum("blin,bln->bli", hs, Cc.to(torch.float32))
         y = y + params["D"][None, None] * xc.to(torch.float32)
@@ -235,14 +269,19 @@ def mamba_forward(params, dims: SSMDims, x, state=None, conv_prev=None, chunk: i
         a = torch.exp(dt * A[None, None])[..., None, None]  # [B, L, H, 1, 1]
         xh = xc.reshape(B, L, H, P).to(torch.float32)
         bx = (dt[..., None] * xh)[..., None] * Bc[:, :, None, None, :]  # [B, L, H, P, N]
-        h0 = state if state is not None else torch.zeros((B, H, P, N), **f32)
+        h0 = state if state is not None else _zeros_state(bx, (B, H, P, N), f32)
         hs, h_last = chunked_linear_scan(a, bx, h0, chunk)
         y = torch.einsum("blhpn,bln->blhp", hs, Cc)
         y = y + params["D"][None, None, :, None] * xh
         y = y.reshape(B, L, Di)
         y = rmsnorm(y.to(x.dtype) * F.silu(z), params["gate_norm"], 1e-5)
 
-    out = y.to(x.dtype) @ params["out_proj"]
+    yv = y.to(x.dtype)
+    if decode:
+        yv = shard(yv, None, None, "model")
+        out = shard(yv @ params["out_proj"], None, None, ("data",))
+    else:
+        out = yv @ params["out_proj"]
     return out, (h_last, conv_tail)
 
 

@@ -12,7 +12,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import reduced, tree_leaves, tree_map
 from repro_torch.streaming import prng
 
 
@@ -33,10 +33,11 @@ def adamw_init(params) -> AdamWState:
 def global_norm(grads) -> torch.Tensor:
     """The f32 global norm of a gradient tree, as the JAX package takes it:
     leaf sums of squares added in ``jax.tree.leaves`` order, plus 1e-20,
-    and the correctly rounded square root."""
+    and the correctly rounded square root.  Under a dry-run mesh each leaf's
+    partial sum is all-reduced before it is added."""
     total = None
     for g in tree_leaves(grads):
-        s = g.to(torch.float32).square().sum()
+        s = reduced(g.to(torch.float32).square().sum())
         total = s if total is None else total + s
     return prng.sqrt_f32(total + 1e-20)
 

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import shard_like, tree_leaves, tree_map
 from repro_torch.training.optimizer import AdamWState, adamw_update
 
 
@@ -46,6 +46,8 @@ def make_train_step(
             loss = lm.forward_loss(cfg, leaves, batch, q_chunk=q_chunk, ssm_chunk=ssm_chunk,
                                    remat=remat)
             grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        # each gradient placed as its parameter (a dry-run mesh's reduce-scatter)
+        grads = [shard_like(g, p) for g, p in zip(grads, tree_leaves(leaves))]
         return loss.detach(), _unflatten(leaves, iter(grads))
 
     def step(params, opt: AdamWState, batch: dict):
