@@ -28,8 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``delta_merge_join``), held bitwise against its plain version and
    against the parent's sequence (the standalone ``gated_delta_merge`` and
    ``crdt_merge`` kernels, then ``_merge_wstate``'s torch ops), both timed
-   on the same inputs; the standalone kernels are still checked and timed
-   on the stacks the fused launch receives.  The counters' reads
+   on the same inputs, and at a rank's shape across processes (4 state
+   rows against the 16-row stack, phase 11's) bitwise its plain
+   version; the standalone kernels are still checked and timed on the
+   stacks the fused launch receives.  The counters' reads
    (``actor_sum``, the left fold over actor rows) are held bitwise against
    the plain version on the card and the CPU, each run's first read timed
    beside ``torch.sum(dim=1)``.  An empty kernel, timed by the same loop,
@@ -169,8 +171,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     counted flops: MFU <= HFU), the roofline terms beside the measured time
     (from the phases' own untraced runs), and the predicted peak bytes
     beside ``torch.cuda.max_memory_allocated``.
-11. Print events/s and sync bytes per round per run, with the card.
-12. A JSON line ``{"kernels": [...]}``, then the last line
+11. The dense dataplane across processes (``run_dist_dataplane``): phase
+    4's deployment over a ``DistMesh`` of 4 ranks, 4 partitions each, one
+    process a rank (this script with ``--rank``), meeting through a
+    ``FileStore``: gloo when the ranks share one card (staging CUDA
+    buffers through pinned host memory), NCCL when there is one card a
+    rank.  Phase 4's log is freed first; each rank draws its own rows.
+    Every query with delta sync, then q4 with full sync, a warm-up round
+    and the timed run each: a rank's launches (the fused merge once a spec
+    a round), wall time to a device synchronise, host µs a sync round, its
+    transport's host µs (gather, staging) and bytes a round, and its peak
+    memory; rank 0 gathers ``oks``, ``vals`` and ``sync_bytes`` and holds
+    them bitwise equal to phase 4's outputs, handed over by file.  Each
+    rank is joined with a timeout; a failed or late rank fails the run.
+12. Print events/s and sync bytes per round per run, with the card.
+13. A JSON line ``{"kernels": [...]}``, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it fails before any result.
@@ -293,6 +308,13 @@ DRYRUN_CELLS = (("minitron_4b", "train_4k"), ("qwen3_moe_235b_a22b", "train_4k")
                 ("seamless_m4t_large_v2", "decode_32k"), ("pixtral_12b", "prefill_32k"))
 CALIBRATION: dict = {}
 SERVE_MOE_TOKENS = 128
+# phase 11, the dense dataplane across processes: phase 4's deployment over
+# DIST_WORLD ranks of S // DIST_WORLD partitions each, every query with
+# delta sync and q4 with full sync; the ranks share one card over gloo, or
+# take one card each over NCCL where there are enough
+DIST_WORLD = 4
+DIST_RUNS = tuple((qn, True) for qn in QUERIES) + (("q4", False),)
+DIST_TIMEOUT = 600  # seconds for the ranks' processes, start-up included
 # 9a's tolerances, tests/test_torch_serve_families.py's (of the largest
 # magnitude): the hybrid's scan rounding carried through its gated RMSNorms
 SERVE_TOL = {"hybrid": 1e-4}
@@ -972,6 +994,20 @@ def check_delta_merge_join(dev, calls: dict, floor: dict) -> dict:
                 assert_equal(f"delta_merge_join edge {edge} S={S_} R={R} W={W_} output {k}", a, b)
     log("delta_merge_join: 8 fields of mixed dtypes and joins in one launch, R = 1 and "
         "R != S, clean, newer and equal slots bitwise equal")
+    # a rank's merge side across processes (phase 11): its S / DIST_WORLD
+    # state rows against the gathered S-row stack, at every recorded call
+    L = S // DIST_WORLD
+    mine = slice(L, 2 * L)  # rank 1's partitions
+    for tag in ("q1_ratio", "q4", "q5"):
+        for i, (_, args) in enumerate(merge_inputs(calls, tag)):
+            state_wid, stack_wid, sl, kl, joins, sm, km = args
+            part = (state_wid[mine].contiguous(), stack_wid, [x[mine].contiguous() for x in sl],
+                    kl, joins, [m[mine].contiguous() for m in sm], km)
+            for k, (a, b) in enumerate(zip(_merge_outputs(ops.delta_merge_join(*part)),
+                                           _merge_outputs(ref.delta_merge_join_ref(*part)))):
+                assert_equal(f"delta_merge_join {tag} call {i} S={L} R={S} output {k}", a, b)
+    log(f"delta_merge_join: {L} state rows against the {S}-row stack at every q1_ratio, q4 "
+        "and q5 call bitwise equal")
     return max(rows, key=lambda r: r["bound_ms"])
 
 
@@ -1292,9 +1328,10 @@ def run_pipeline(q, mesh, log_, delta: bool, first: int, n: int):
     return out, tm.dt, torch.cuda.max_memory_allocated()
 
 
-def run_dataplane(dev):
+def run_dataplane(dev, handover: Path):
     """Phase 4: every query at full size, checked; returns the result rows
-    and each kernel's launches over all runs."""
+    and each kernel's launches over all runs.  Each first run of a query
+    and sync leaves its outputs and seconds in ``handover`` for phase 11."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.launch.stream import MAKERS, read_window_range
@@ -1321,13 +1358,7 @@ def run_dataplane(dev):
         q = MAKERS[qn](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS)
         first, n = read_window_range(q, horizon)
         (oks, vals, sb), dt, peak = run_pipeline(q, mesh, the_log, delta, first, n)
-        used = {"topk_window"} if qn == "q7" else {"window_agg", "actor_sum"}
-        if delta and qn in ("q1_ratio", "q4", "q5"):
-            used |= {"delta_merge_join"}
-        counts = check_launches(qn, used)
-        if counts["delta_merge_join"] not in (0, n_rounds * len(q.shared_specs)):
-            raise AssertionError(f"{qn}: {counts['delta_merge_join']} fused merges, expected "
-                                 f"one a spec a round")
+        counts = check_dense_launches(qn, q, delta, n_rounds)
         for k, c in counts.items():
             launches[k] += c
         done = check_against_oracle(q, the_log, oks, vals, first)
@@ -1345,6 +1376,9 @@ def run_dataplane(dev):
             log(f"q4: {what} gives byte-identical oks and vals")
         if qn == "q4" and q4_delta is None:
             q4_delta = (oks, vals, sb)
+        if not (handover / f"{qn}.{mode}.pt").exists():
+            torch.save({"oks": oks.cpu(), "vals": vals.cpu(), "sync_bytes": sb.cpu(),
+                        "seconds": dt}, handover / f"{qn}.{mode}.pt")
         row = {"query": qn, "sync": mode, "events": n_events, "seconds": dt,
                "events_per_s": n_events / dt, "complete_windows": done,
                "sync_bytes_per_round": sb.mean().item() / n_rounds,
@@ -1440,6 +1474,20 @@ def check_launches(run: str, used: set) -> dict:
     for k, c in counts.items():
         if (k in used) != (c > 0):
             raise AssertionError(f"{run}: kernel {k} launched {c} times")
+    return counts
+
+
+def check_dense_launches(run: str, q, delta: bool, n_rounds: int) -> dict:
+    """A dense run's launches (:func:`check_launches`): the query's fold and
+    read kernels and, under delta sync where it shares state, the fused
+    merge, once a spec a round."""
+    used = {"topk_window"} if q.name == "q7" else {"window_agg", "actor_sum"}
+    if delta and q.name in ("q1_ratio", "q4", "q5"):
+        used |= {"delta_merge_join"}
+    counts = check_launches(run, used)
+    if counts["delta_merge_join"] not in (0, n_rounds * len(q.shared_specs)):
+        raise AssertionError(f"{run}: {counts['delta_merge_join']} fused merges, expected "
+                             f"one a spec a round")
     return counts
 
 
@@ -3206,6 +3254,158 @@ def run_dry_run(card: str, cells: subprocess.Popen) -> None:
     log(f"10b done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dense dataplane across processes
+# ---------------------------------------------------------------------------
+
+
+def dist_rank(rank: int, world: int, backend: str, work: Path, handover: Path) -> None:
+    """One rank of phase 11, in a process of its own: draw its rows of the
+    log, run ``DIST_RUNS`` over a ``DistMesh`` (a warm-up round, then the
+    timed run), check its launches, gather every rank's outputs (rank 0
+    holds them bitwise against phase 4's, from ``handover``), and write its
+    rows to ``work/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dist_mesh
+    from repro_torch.launch.stream import MAKERS, build_pipeline, gather_outputs, read_window_range
+    from repro_torch.obs.timing import WallTimer
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    dist.init_process_group(backend, store=dist.FileStore(str(work / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_dist_mesh(S, "cuda", backend)
+        nx = NexmarkConfig(num_partitions=S, num_batches=NUM_BATCHES, events_per_batch=B,
+                           rate_per_partition=RATE, seed=SEED)
+        t0 = time.perf_counter()
+        log_ = generate_log(nx, mesh.device, partitions=mesh.partitions)
+        torch.cuda.synchronize(mesh.device)
+        log_s = time.perf_counter() - t0
+        n_rounds = NUM_BATCHES // SYNC_EVERY
+        rows = []
+        for qn, delta in DIST_RUNS:
+            mode = "delta" if delta else "full"
+            q = MAKERS[qn](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS)
+            first, n = read_window_range(q, NUM_BATCHES * nx.batch_span_ms)
+            pipe = build_pipeline(q, mesh, SYNC_EVERY, delta_sync=delta, n_windows=n,
+                                  first_window=first)
+            pipe(log_.map(lambda x: x[:, :SYNC_EVERY]))  # warm-up: one sync round
+            torch.cuda.synchronize(mesh.device)
+            dist.barrier()
+            reset_launches()
+            mesh.stats.reset()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            with WallTimer(mesh.device) as tm:
+                out = pipe(log_)
+            counts = check_dense_launches(f"rank {rank} {qn} {mode}", q, delta, n_rounds)
+            st = mesh.stats
+            row = {"query": qn, "sync": mode, "seconds": tm.dt,
+                   "host_us_per_round": tm.dt / n_rounds * 1e6,
+                   "gathers_per_round": st.gathers / n_rounds,
+                   "gather_us_per_round": st.gather_s / n_rounds * 1e6,
+                   "staging_us_per_round": st.staging_s / n_rounds * 1e6,
+                   "sent_bytes_per_round": st.sent_bytes / n_rounds,
+                   "received_bytes_per_round": st.received_bytes / n_rounds,
+                   "peak_gb": torch.cuda.max_memory_allocated(mesh.device) / 1e9,
+                   "launches": counts}
+            oks, vals, sb = gather_outputs(mesh, out)
+            row["modelled_sync_bytes_per_round"] = sb.mean().item() / n_rounds
+            if rank == 0:
+                want = torch.load(handover / f"{qn}.{mode}.pt")
+                for name, got in (("oks", oks), ("vals", vals), ("sync_bytes", sb)):
+                    if not torch.equal(got.cpu(), want[name]):
+                        raise AssertionError(f"{qn} {mode} {name}: {world} ranks differ from "
+                                             "phase 4's stacked run")
+                row["phase4_seconds"] = want["seconds"]
+            rows.append(row)
+            del out, oks, vals, sb
+        (work / f"rank{rank}.json").write_text(json.dumps(
+            {"rank": rank, "device": str(mesh.device), "partitions": list(mesh.partitions),
+             "log_s": log_s, "rows": rows}))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dist_dataplane(card: str, handover: Path, tmp: Path) -> list:
+    """Phase 11: ``DIST_WORLD`` rank processes over gloo on one card, or
+    NCCL with one card a rank where there are enough; each joined with a
+    timeout, a failed or late one failing the phase.  Prints each run's
+    events/s beside phase 4's, host µs a round, the transport's host µs and
+    bytes a round, and the modelled sync bytes a round."""
+    torch.cuda.empty_cache()  # phase 4's log and the model phases' blocks
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DIST_WORLD else "gloo"
+    where = (f"{DIST_WORLD} ranks on {DIST_WORLD} cards" if backend == "nccl"
+             else f"{DIST_WORLD} ranks sharing one card")
+    work = tmp / "phase11"
+    work.mkdir()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(DIST_WORLD):
+        logs.append(work / f"rank{r}.log")
+        env = dict(os.environ, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DIST_WORLD))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), "--world",
+                 str(DIST_WORLD), "--backend", backend, "--work", str(work), "--handover",
+                 str(handover)], stdout=f, stderr=subprocess.STDOUT, env=env))
+    try:
+        while time.perf_counter() - t0 < DIST_TIMEOUT:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:  # leave no process running
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            log(f"--- phase 11 rank {r} (exit {procs[r].returncode}) ---\n"
+                f"{logs[r].read_text()[-4000:]}")
+        raise RuntimeError(f"phase 11: ranks {bad} failed or outlived {DIST_TIMEOUT} s")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    log(f"phase 11: {where}, backend {backend}; ranks' log rows drawn in "
+        f"{max(x['log_s'] for x in ranks):.2f} s; devices {[x['device'] for x in ranks]}")
+    n_events = S * NUM_BATCHES * B
+    n_rounds = NUM_BATCHES // SYNC_EVERY
+    mean = lambda k, i: sum(x["rows"][i][k] for x in ranks) / DIST_WORLD  # noqa: E731
+    results = []
+    for i, (qn, delta) in enumerate(DIST_RUNS):
+        r0 = ranks[0]["rows"][i]
+        secs = max(x["rows"][i]["seconds"] for x in ranks)
+        row = {"phase": 11, "query": qn, "sync": r0["sync"], "backend": backend,
+               "ranks": DIST_WORLD, "cards": min(cards, DIST_WORLD), "events": n_events,
+               "seconds": secs, "events_per_s": n_events / secs,
+               "phase4_events_per_s": n_events / r0["phase4_seconds"],
+               "host_us_per_round": secs / n_rounds * 1e6,
+               "phase4_host_us_per_round": r0["phase4_seconds"] / n_rounds * 1e6,
+               **{k: mean(k, i) for k in ("gathers_per_round", "gather_us_per_round",
+                                          "staging_us_per_round", "sent_bytes_per_round",
+                                          "received_bytes_per_round")},
+               "modelled_sync_bytes_per_round": r0["modelled_sync_bytes_per_round"],
+               "peak_gb_per_rank": max(x["rows"][i]["peak_gb"] for x in ranks),
+               "launches_per_rank": [x["rows"][i]["launches"] for x in ranks],
+               "outputs": "bitwise phase 4's", "card": card}
+        results.append(row)
+        log(json.dumps(row))
+        L = S // DIST_WORLD
+        log(f"phase 11 {qn:9s} {row['sync']:5s} {backend} x{DIST_WORLD}: "
+            f"{row['events_per_s']:.6e} events/s (phase 4 {row['phase4_events_per_s']:.6e}), "
+            f"{row['host_us_per_round']:.1f} host us a round (phase 4 "
+            f"{row['phase4_host_us_per_round']:.1f}), transport {row['gather_us_per_round']:.1f} "
+            f"us gather + {row['staging_us_per_round']:.1f} us staging a round a rank; "
+            f"gathered {row['sent_bytes_per_round'] / L:.1f} bytes a replica a round against "
+            f"{row['modelled_sync_bytes_per_round']:.1f} modelled; outputs bitwise phase 4's "
+            f"{card}")
+    log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def same_state(a, b, what: str) -> None:
     from repro_torch.convert import wstate_to_numpy
 
@@ -3253,6 +3453,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        return run_phases(Path(tmp))
+
+
+def run_phases(tmp: Path) -> int:
+    """Every phase; ``tmp`` holds phase 4's outputs for phase 11 and the
+    ranks' files."""
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
@@ -3307,7 +3514,9 @@ def main() -> int:
 
     log(f"== phase 4: dataplane, S={S} partitions x {RATE:.0f} ev/s, B={B}, "
         f"window {WINDOW_MS} ms, {NUM_BATCHES} batches")
-    results, launches = run_dataplane(dev)
+    handover = tmp / "phase4"
+    handover.mkdir()
+    results, launches = run_dataplane(dev, handover)
     profile_share(dev)
     log(f"dense runs done at {time.perf_counter() - t_start:.1f} s")
     keyed_results, keyed_launches, _ = run_keyed(dev)
@@ -3343,7 +3552,12 @@ def main() -> int:
             cells.kill()
             cells.wait()
 
-    log(f"== phase 11: throughput {card}")
+    log(f"== phase 11: the dense dataplane across processes, {DIST_WORLD} ranks of "
+        f"{S // DIST_WORLD} partitions {card}")
+    run_dist_dataplane(card, handover, tmp)
+    log(f"dense dataplane across processes done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"== phase 12: throughput {card}")
     for r in results:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
@@ -3381,5 +3595,21 @@ def main() -> int:
     return 0
 
 
+def rank_main(argv: list) -> int:
+    """A rank process of phase 11 (``--rank R --world W --backend B --work
+    DIR --handover DIR``), started by :func:`run_dist_dataplane`."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, required=True)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), required=True)
+    ap.add_argument("--work", type=Path, required=True)
+    ap.add_argument("--handover", type=Path, required=True)
+    a = ap.parse_args(argv)
+    dist_rank(a.rank, a.world, a.backend, a.work, a.handover)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

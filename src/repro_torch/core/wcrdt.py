@@ -10,7 +10,9 @@ Every state here is *stacked*: each tensor has a leading replica axis
 the ``S`` replicas that the JAX package spreads over the ``data`` mesh.
 ``insert`` folds replica ``s``'s own batch row as ``partition[s]`` (or,
 in the keyed dataplane, each lane as its own source partition); the sync
-functions take the replica stack as their gathered input.  The last
+functions join the mesh's gathered ``[R]`` stack into the ``[S_local]``
+replicas a process holds (``S_local = R`` on one device; a rank's group of
+partitions across processes).  The last
 section holds the hash-sharded keyed state (``KeyShards``).  Semantics are
 those of the JAX package, function by function.
 """
@@ -279,7 +281,8 @@ def merge(spec: WSpec, a: WState, b: WState) -> WState:
 
 def axis_join(spec: WSpec, state: WState, mesh) -> WState:
     """Full-state background sync: gather every replica's state, join the
-    stack (log-depth), and hand the join back to every replica."""
+    stack (log-depth), and hand the join back to each of the mesh's
+    ``local_size`` replicas."""
     joined = join_stacked(mesh.all_gather(state), merge_fn=_merge_wstate)
     return mesh.replicate(joined)
 
@@ -432,10 +435,11 @@ def delta_axis_join(
     """Dirty-slot-gated background sync of every replica.
 
     Each replica extracts its delta since the shared post-sync baseline; the
-    deltas are gathered (the stack itself, on one device), the stack is
-    merged once, and each replica joins the one merged delta into its own
-    state — the result of ``S`` identical merges (:func:`join_delta_stack`).
-    Returns ``(state, shipped)`` with ``shipped`` f32 ``[S]``, each
+    deltas are gathered into the ``[R]`` stack of every replica (the stack
+    itself, on one device), the stack is merged once, and each of the
+    ``S_local`` replicas held here joins the one merged delta into its own
+    state — the result of ``R`` identical merges (:func:`join_delta_stack`).
+    Returns ``(state, shipped)`` with ``shipped`` f32 ``[S_local]``, each
     replica's modeled wire bytes.
     """
     delta = delta_since(spec, state, baseline_folded, baseline_progress)

@@ -1,13 +1,18 @@
 """Collectives over the stacked partition axis (the port's ``data`` mesh).
 
 In the JAX package each partition is one device of the ``data`` mesh axis.
-In the port each of ``S`` partitions is a row of a leading stacked axis on
-one device, and these collectives act on that axis: ``all_gather`` is the
-identity on the stack, ``pmax`` is the replica-stack join broadcast back
-to every row (one ``crdt_merge`` launch, optionally gated), and
-``all_to_all`` is a ``[S_src, S_dst, ...]`` transpose.
-The dataplane reaches replicas only through this interface, so a
-multi-device version can take its place without touching the dataplane.
+In the port each of ``S`` partitions is a row of a leading stacked axis.
+:class:`StackMesh` holds every row on one device, and its collectives act
+on that axis: ``all_gather`` is the identity on the stack, ``pmax`` is the
+replica-stack join broadcast back to every row (one ``crdt_merge`` launch,
+optionally gated), and ``all_to_all`` is a ``[S_src, S_dst, ...]``
+transpose.  :class:`DistMesh` spreads the rows over the ranks of a
+``torch.distributed`` process group, each rank holding a contiguous group
+of ``local_size`` partitions (JAX's partition-per-device ``shard_map``
+when ``local_size`` is 1): its ``all_gather`` is a real collective.  The
+dense dataplane reaches replicas only through ``size``, ``local_size``,
+``partitions``, ``device``, ``all_gather`` and ``replicate``, which both
+meshes offer.
 
 The production meshes of the dry run (:func:`make_production_mesh`,
 :func:`make_mesh`) are the JAX package's shapes and axis names as
@@ -19,7 +24,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
+import os
+import time
 
 import torch
 
@@ -33,6 +41,16 @@ class StackMesh:
 
     size: int
     device: torch.device
+
+    @property
+    def local_size(self) -> int:
+        """Rows this process holds: all of them."""
+        return self.size
+
+    @property
+    def partitions(self) -> range:
+        """The partition ids of this process's rows, in row order."""
+        return range(self.size)
 
     def all_gather(self, state):
         """Every replica's view of all replicas: the stack itself."""
@@ -58,6 +76,116 @@ class StackMesh:
         return x.transpose(0, 1).contiguous()
 
 
+@dataclasses.dataclass
+class GatherStats:
+    """What a :class:`DistMesh`'s gathers cost this rank since the last
+    :meth:`reset`: host seconds inside the collective call (under NCCL the
+    enqueue alone), host seconds copying between the card and pinned host
+    memory (gloo's staging; the device-to-host copy waits for the work
+    queued before it), and the bytes the rank sent (its own rows) and
+    received (every rank's rows)."""
+
+    gathers: int = 0
+    sent_bytes: int = 0
+    received_bytes: int = 0
+    gather_s: float = 0.0
+    staging_s: float = 0.0
+
+    def reset(self) -> None:
+        self.gathers = self.sent_bytes = self.received_bytes = 0
+        self.gather_s = self.staging_s = 0.0
+
+
+def _tensors(state) -> list[torch.Tensor]:
+    """Every tensor of a state, in :func:`map_tensors`' order."""
+    out = []
+    map_tensors(out.append, state)
+    return out
+
+
+def _all_gather_single(out: torch.Tensor, x: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    # torch 2.13 renames all_gather_into_tensor to all_gather_single
+    (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMesh:
+    """``size`` partitions over the ``world`` ranks of the default process
+    group: rank ``rank`` holds partitions ``partitions`` as ``local_size``
+    stacked rows on ``device``.  Made by :func:`make_dist_mesh`."""
+
+    size: int
+    rank: int
+    world: int
+    device: torch.device
+    backend: str  # "gloo" or "nccl"
+    stats: GatherStats = dataclasses.field(default_factory=GatherStats, compare=False)
+
+    @property
+    def local_size(self) -> int:
+        return self.size // self.world
+
+    @property
+    def partitions(self) -> range:
+        L = self.local_size
+        return range(self.rank * L, (self.rank + 1) * L)
+
+    def all_gather(self, state):
+        """Every tensor ``[local_size, ...]`` of ``state`` as its ``[size,
+        ...]`` stack in rank (so partition) order.  The rows of every tensor
+        travel as their bytes in one buffer, one collective a state; nothing
+        is cast."""
+        L = self.local_size
+        leaves = _tensors(state)
+        for x in leaves:
+            if x.dim() == 0 or x.shape[0] != L:
+                raise ValueError(f"all_gather: a tensor of shape {tuple(x.shape)}, "
+                                 f"expected {L} leading rows")
+        rows = [x.contiguous().view(torch.uint8).reshape(L, -1) for x in leaves]
+        gathered = self._gather_bytes(torch.cat(rows, 1) if len(rows) > 1 else rows[0])
+        bounds = list(itertools.accumulate((r.shape[1] for r in rows), initial=0))
+        spans = iter(zip(bounds, bounds[1:]))
+
+        def unpack(x):
+            a, b = next(spans)
+            return gathered[:, a:b].contiguous().view(x.dtype).reshape(self.size, *x.shape[1:])
+
+        return map_tensors(unpack, state)
+
+    def _gather_bytes(self, buf: torch.Tensor) -> torch.Tensor:
+        """``[local_size, n]`` bytes -> ``[size, n]``.  gloo moves a CUDA
+        buffer through pinned host memory, staged here and not by gloo."""
+        shape = (self.size, buf.shape[1])
+        st = self.stats
+        st.gathers += 1
+        st.sent_bytes += buf.numel()
+        st.received_bytes += shape[0] * shape[1]
+        if self.backend == "gloo" and buf.is_cuda:
+            t0 = time.perf_counter()
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf)
+            out = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            t1 = time.perf_counter()
+            _all_gather_single(out, host)
+            t2 = time.perf_counter()
+            out = out.to(buf.device)
+            st.staging_s += (t1 - t0) + (time.perf_counter() - t2)
+            st.gather_s += t2 - t1
+            return out
+        out = torch.empty(shape, dtype=torch.uint8, device=buf.device)
+        t1 = time.perf_counter()
+        _all_gather_single(out, buf)
+        st.gather_s += time.perf_counter() - t1
+        return out
+
+    def replicate(self, state):
+        """Hand one (unstacked) state to this rank's ``local_size`` rows."""
+        return map_tensors(
+            lambda x: x.unsqueeze(0).expand(self.local_size, *x.shape).contiguous(), state)
+
+
 def make_data_mesh(num_partitions: int, device="cuda") -> StackMesh:
     """A stacked mesh of ``num_partitions`` replicas on ``device``.
 
@@ -67,6 +195,48 @@ def make_data_mesh(num_partitions: int, device="cuda") -> StackMesh:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return StackMesh(num_partitions, device)
+
+
+def make_dist_mesh(num_partitions: int, device, backend: str) -> DistMesh:
+    """This rank's :class:`DistMesh` of ``num_partitions`` partitions over
+    the default process group, which must be up
+    (``torch.distributed.init_process_group`` with ``backend``) and divide
+    them evenly.
+
+    A CUDA device without an index becomes the rank's card, ``cuda:
+    LOCAL_RANK % device_count``, and is made current.  NCCL takes one card
+    a rank: it is refused when this host's ranks (``LOCAL_WORLD_SIZE``)
+    outnumber its cards, and on the CPU; gloo serves both.  Raises, and
+    never switches backend or device, when the request cannot be met; a
+    CUDA device without a card raises as in :func:`make_data_mesh`."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: gloo or nccl")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"NCCL moves CUDA tensors, not {device.type} ones; use gloo")
+    if not dist.is_initialized():
+        raise RuntimeError("no process group is up: call torch.distributed.init_process_group")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if num_partitions % world:
+        raise ValueError(f"{num_partitions} partitions do not split over {world} ranks")
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if backend == "nccl":
+            local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+            if local_world > cards:
+                raise RuntimeError(f"NCCL takes one card a rank: {local_world} ranks would "
+                                   f"share {cards} card(s); use gloo")
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)) % cards)
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, not {backend}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return DistMesh(num_partitions, rank, world, device, backend)
 
 
 # --------------------------------------------------------------------------

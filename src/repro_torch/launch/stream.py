@@ -1,30 +1,38 @@
 """Production streaming driver (port of ``repro.launch.stream``).
 
-The whole Holon pipeline on one device: ``S`` partitions stacked on a
-leading axis (``launch/mesh.py``), batched folds through the windowed-fold
-and top-k kernels, and every ``sync_every`` folds one background-sync
-round — delta-state by default (each replica's dirty slots, merged and
-joined into every replica by one fused delta-merge launch a spec), or the
-full-state join with ``delta_sync=False``.  Windows are read on the device
-at the end.  :func:`build_keyed_pipeline` is the hash-sharded keyed
-dataplane: keys are routed to one owner partition each, folded by the
+The whole Holon pipeline: ``S`` partitions stacked on a leading axis
+(``launch/mesh.py``), on one device (``StackMesh``) or a contiguous group
+of them a rank of a ``torch.distributed`` process group (``DistMesh``, the
+JAX package's partition-per-device ``shard_map``); batched folds through
+the windowed-fold and top-k kernels, and every ``sync_every`` folds one
+background-sync round — delta-state by default (each replica's dirty
+slots, gathered from every replica, merged and joined into each by one
+fused delta-merge launch a spec), or the full-state join with
+``delta_sync=False``.  Windows are read on the device at the end.
+:func:`build_keyed_pipeline` is the hash-sharded keyed dataplane, on a
+``StackMesh``: keys are routed to one owner partition each, folded by the
 segment-reduce kernel, and only watermarks are synced.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --query q4 --partitions 16
   (``--device cpu`` runs the plain versions of the kernels on the host)
+  torchrun --standalone --nproc-per-node R -m repro_torch.launch.stream \
+      --partitions S --backend {gloo,nccl} [--device cpu] ...
+  (one rank a process, S / R partitions each; rank r on card
+  ``LOCAL_RANK % device_count``)
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
 from repro_torch.core import wcrdt as W
 from repro_torch.core.lattice import as_dtype
 from repro_torch.core.window import as_assigner
-from repro_torch.launch.mesh import StackMesh, make_data_mesh
+from repro_torch.launch.mesh import DistMesh, StackMesh, make_data_mesh, make_dist_mesh
 from repro_torch.obs.timing import WallTimer
 from repro_torch.streaming.events import KIND_BID, EventBatch
 from repro_torch.streaming.generator import NexmarkConfig, generate_log
@@ -47,11 +55,14 @@ MAKERS = {
 
 
 def build_pipeline(
-    query: Query, mesh: StackMesh, sync_every: int, delta_sync: bool = True,
+    query: Query, mesh: StackMesh | DistMesh, sync_every: int, delta_sync: bool = True,
     n_windows: int = 64, first_window: int = 0,
 ):
-    """Returns fn: ``log`` (EventBatch ``[S, num_batches, B]``) ->
-    ``(oks f32[S, n], vals f32[S, n, out_width], sync_bytes f32[S])``.
+    """Returns fn: ``log`` (EventBatch ``[L, num_batches, B]``) ->
+    ``(oks f32[L, n], vals f32[L, n, out_width], sync_bytes f32[L])``, the
+    rows of the mesh's own ``L = mesh.local_size`` partitions
+    (``mesh.partitions``): all ``S`` of them on a ``StackMesh``, the rank's
+    group on a ``DistMesh`` (:func:`gather_outputs` stacks every rank's).
 
     Folds the batches in order; every ``sync_every`` folds runs one
     background-sync round (trailing batches that do not fill a round are not
@@ -59,16 +70,18 @@ def build_pipeline(
     ``first_window .. first_window + n_windows - 1``.  ``sync_bytes`` is
     each replica's total modeled sync traffic.
     """
-    S, dev = mesh.size, mesh.device
+    S, L, dev, parts = mesh.size, mesh.local_size, mesh.device, mesh.partitions
     if query.num_partitions != S:
         raise ValueError(f"query has {query.num_partitions} partitions, mesh {S}")
 
     def run(log: EventBatch):
-        part = torch.arange(S, device=dev)
-        shared = query.init_shared(dev)
-        local = query.init_local(dev)
+        if log.ts.shape[0] != L:
+            raise ValueError(f"log has {log.ts.shape[0]} partition rows, the mesh holds {L}")
+        part = torch.arange(parts.start, parts.stop, device=dev)
+        shared = query.init_shared(dev, L)
+        local = query.init_local(dev, L)
         baselines = [W.baseline_of(st) for st in shared]
-        sync_bytes = torch.zeros(S, dtype=torch.float32, device=dev)
+        sync_bytes = torch.zeros(L, dtype=torch.float32, device=dev)
         n_rounds = log.ts.shape[1] // sync_every
         idx = 0
         for _ in range(n_rounds):
@@ -95,6 +108,13 @@ def build_pipeline(
         return torch.stack(oks, 1), torch.stack(vals, 1), sync_bytes
 
     return run
+
+
+def gather_outputs(mesh: StackMesh | DistMesh, out: tuple) -> tuple:
+    """A pipeline's ``(oks, vals, sync_bytes)`` rows stacked over every
+    partition, ``[S, ...]`` each (on a ``StackMesh``, ``out`` itself); a
+    collective on a ``DistMesh``, so every rank calls it."""
+    return tuple(mesh.all_gather(x) for x in out)
 
 
 def default_fold_schedule(num_shards: int, num_batches: int) -> torch.Tensor:
@@ -210,6 +230,10 @@ def build_keyed_pipeline(
     routed to it (``-2**31`` where it routed none).  Reads are
     :func:`W.shard_topk_read` with k=1.
     """
+    if isinstance(mesh, DistMesh):
+        raise NotImplementedError(
+            "the keyed dataplane runs on a StackMesh: its exchange across processes "
+            "(all_to_all, the gated pmax) is not ported yet")
     if mesh.size != shards.num_shards:
         raise ValueError(f"{shards.num_shards} shards, mesh {mesh.size}")
     assigner = as_assigner(window_len, hop if hop else window_len // 2)
@@ -234,10 +258,14 @@ def read_window_range(query: Query, horizon_ts: float) -> tuple[int, int]:
 
 
 def main(argv=None) -> dict:
+    """The CLI.  Under ``torchrun`` (``WORLD_SIZE`` set) each process is one
+    rank of a ``DistMesh`` over ``--backend``; without it, a ``StackMesh``
+    on one device.  Rank 0 prints the result line."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--query", default="q7", choices=sorted(MAKERS))
     ap.add_argument("--partitions", type=int, default=8,
-                    help="partitions S, stacked on one device")
+                    help="partitions S: stacked on one device, or split evenly over "
+                         "torchrun's ranks")
     ap.add_argument("--batches", type=int, default=64)
     ap.add_argument("--events-per-batch", type=int, default=1024)
     ap.add_argument("--window-len", type=int, default=1000)
@@ -249,17 +277,33 @@ def main(argv=None) -> dict:
                     help="full-state join instead of delta sync")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=("gloo", "nccl"),
+                    help="torch.distributed backend of the ranks (under torchrun only)")
     args = ap.parse_args(argv)
     if not 1 <= args.sync_every <= args.batches:
         ap.error(f"--sync-every must be in [1, --batches]; got {args.sync_every}")
+    distributed = "WORLD_SIZE" in os.environ
+    if distributed != (args.backend is not None):
+        ap.error("--backend names the backend of torchrun's ranks: give it under torchrun, "
+                 "and only there")
+    if not distributed:
+        return _run(args, make_data_mesh(args.partitions, args.device))
+    import torch.distributed as dist
 
-    S = args.partitions
-    mesh = make_data_mesh(S, args.device)
+    dist.init_process_group(args.backend)
+    try:
+        return _run(args, make_dist_mesh(args.partitions, args.device, args.backend))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, mesh: StackMesh | DistMesh) -> dict:
+    S = mesh.size
     nx = NexmarkConfig(
         num_partitions=S, num_batches=args.batches,
         events_per_batch=args.events_per_batch, seed=args.seed,
     )
-    log = generate_log(nx, mesh.device)
+    log = generate_log(nx, mesh.device, partitions=mesh.partitions)
     kw = {"hop": args.hop} if args.hop else {}
     query = MAKERS[args.query](S, window_len=args.window_len, num_slots=64, **kw)
     horizon_ts = args.batches * nx.batch_span_ms
@@ -268,21 +312,28 @@ def main(argv=None) -> dict:
                           n_windows=n_windows, first_window=first_window)
     pipe(log.map(lambda x: x[:, :args.sync_every]))  # warm-up: one sync round
     with WallTimer(mesh.device) as tm:
-        oks, vals, sb = pipe(log)
+        out = pipe(log)
     dt = tm.dt
+    if isinstance(mesh, DistMesh):  # the slowest rank's time
+        dt = float(mesh.all_gather(torch.full((mesh.local_size,), dt, dtype=torch.float64,
+                                              device=mesh.device)).max())
+    oks, vals, sb = gather_outputs(mesh, out)
 
     total_events = S * args.batches * args.events_per_batch
     done = int(oks.sum().item()) // S
     rounds = max(args.batches // args.sync_every, 1)
     sync_per_round = float(sb.mean().item()) / rounds
     a = query.assigner
-    print(
-        f"partitions={S} events={total_events} wall={dt*1e3:.1f}ms "
-        f"throughput={total_events/dt/1e6:.2f}M ev/s "
-        f"window={a.window_len}/hop={a.hop} complete_windows={done} "
-        f"sync={'full' if args.full_sync else 'delta'} "
-        f"sync_bytes_per_round={sync_per_round:.0f}"
-    )
+    ranks = (f" ranks={mesh.world} backend={mesh.backend}"
+             if isinstance(mesh, DistMesh) else "")
+    if not isinstance(mesh, DistMesh) or mesh.rank == 0:
+        print(
+            f"partitions={S} events={total_events} wall={dt*1e3:.1f}ms "
+            f"throughput={total_events/dt/1e6:.2f}M ev/s "
+            f"window={a.window_len}/hop={a.hop} complete_windows={done} "
+            f"sync={'full' if args.full_sync else 'delta'} "
+            f"sync_bytes_per_round={sync_per_round:.0f}{ranks}"
+        )
     return {"events_per_s": total_events / dt, "complete_windows": done,
             "sync_bytes_per_round": sync_per_round}
 

@@ -47,13 +47,14 @@ class NexmarkConfig:
         return 1000.0 * self.events_per_batch / self.rate_per_partition
 
 
-def _gen_chunk(cfg: NexmarkConfig, b0: int, nb: int, device) -> EventBatch:
-    """Batches ``b0 .. b0 + nb`` of every partition: one threefry key per
-    (partition, batch), all drawn at once along the event axis."""
-    S, B = cfg.num_partitions, cfg.events_per_batch
+def _gen_chunk(cfg: NexmarkConfig, b0: int, nb: int, parts: range, device) -> EventBatch:
+    """Batches ``b0 .. b0 + nb`` of the partitions ``parts``: one threefry
+    key per (partition, batch), all drawn at once along the event axis."""
+    S, B = len(parts), cfg.events_per_batch
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
-    key = prng.fold_in(prng.prng_key(cfg.seed, device), torch.arange(S, **i64)[:, None])
+    p = torch.arange(parts.start, parts.stop, parts.step, **i64)  # [S] partition ids
+    key = prng.fold_in(prng.prng_key(cfg.seed, device), p[:, None])
     key = prng.fold_in(key, torch.arange(b0, b0 + nb, **i64)[None, :])  # [S, nb]
     k_price, k_auct, k_bidder, k_jit = prng.split(key, 4)
 
@@ -73,7 +74,7 @@ def _gen_chunk(cfg: NexmarkConfig, b0: int, nb: int, device) -> EventBatch:
 
     # skewed load, Bresenham-spread over the batch; the last event is always
     # kept so every partition's watermark reaches the span's end
-    frac = prng.pow_f32(torch.arange(S, **f32) + 1.0, -cfg.skew)  # [S]
+    frac = prng.pow_f32(p.to(torch.float32) + 1.0, -cfg.skew)  # [S]
     lane_f = torch.arange(B, **f32)
     valid = torch.floor((lane_f + 1.0) * frac[:, None]) > torch.floor(lane_f * frac[:, None])
     valid = (valid | (torch.arange(B, device=device) == B - 1))[:, None, :].expand(S, nb, B)
@@ -96,14 +97,20 @@ def _auction_ids(cfg: NexmarkConfig, key: prng.Key) -> torch.Tensor:
     return torch.clamp(torch.floor(x) - 1.0, 0.0, N - 1.0).to(torch.int64)
 
 
-def generate_log(cfg: NexmarkConfig, device="cuda") -> EventBatch:
-    """Full input log: EventBatch of ``[num_partitions, num_batches, B]``
-    tensors on ``device``, the JAX package's ``generate_log(cfg)``."""
-    shape = (cfg.num_partitions, cfg.num_batches, cfg.events_per_batch)
+def generate_log(cfg: NexmarkConfig, device="cuda", partitions: range | None = None) -> EventBatch:
+    """Input log: EventBatch of ``[len(partitions), num_batches, B]``
+    tensors on ``device``, the rows ``partitions`` (by default all
+    ``num_partitions``) of the JAX package's ``generate_log(cfg)``.  A row
+    depends on its partition id alone, so a rank of a distributed run draws
+    its own rows, bitwise those of the whole log."""
+    parts = range(cfg.num_partitions) if partitions is None else partitions
+    if not (0 <= min(parts, default=0) and max(parts, default=0) < cfg.num_partitions):
+        raise ValueError(f"partitions {parts} outside [0, {cfg.num_partitions})")
+    shape = (len(parts), cfg.num_batches, cfg.events_per_batch)
     log = None
     for b0 in range(0, cfg.num_batches, CHUNK_BATCHES):
         nb = min(CHUNK_BATCHES, cfg.num_batches - b0)
-        chunk = _gen_chunk(cfg, b0, nb, device)
+        chunk = _gen_chunk(cfg, b0, nb, parts, device)
         if log is None:
             log = chunk.map(lambda x: torch.empty(shape, dtype=x.dtype, device=device))
         for f in dataclasses.fields(EventBatch):

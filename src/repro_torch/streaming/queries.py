@@ -37,13 +37,16 @@ class Query:
     oracle: Callable[..., Any]
     out_width: int  # f32 output lanes per (partition, window)
 
-    def init_shared(self, device=None) -> tuple[WState, ...]:
-        return tuple(s.zero(self.num_partitions, device) for s in self.shared_specs)
+    def init_shared(self, device=None, rows: int | None = None) -> tuple[WState, ...]:
+        """Zero shared states of ``rows`` replicas (by default one a
+        partition); each still holds all ``num_partitions`` actors."""
+        rows = self.num_partitions if rows is None else rows
+        return tuple(s.zero(rows, device) for s in self.shared_specs)
 
-    def init_local(self, device=None) -> WState | None:
+    def init_local(self, device=None, rows: int | None = None) -> WState | None:
         if self.local_spec is None:
             return None
-        return self.local_spec.zero(self.num_partitions, device)
+        return self.local_spec.zero(self.num_partitions if rows is None else rows, device)
 
     def merge_shared(self, a: tuple[WState, ...], b: tuple[WState, ...]) -> tuple[WState, ...]:
         """Slot-aware join of two stacked shared parts, spec by spec (``b``

@@ -576,6 +576,39 @@ def test_q4_sync_merge_side_is_one_launch(dev):
             np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("qname", ["q1_ratio", "q4", "q5"])
+def test_delta_merge_join_state_rows_fewer_than_stack(dev, qname):
+    """A rank's merge side across processes: its 4 state rows against the
+    16-row gathered delta stack, at every spec of the query, is one launch
+    and bitwise the plain version on the CPU."""
+    from repro_torch.convert import wstate_to_numpy
+    from repro_torch.core import wcrdt as W
+    from repro_torch.core.lattice import map_tensors
+    from repro_torch.launch.stream import MAKERS
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    S, L = 16, 4
+    q = MAKERS[qname](S, window_len=100, num_slots=16)
+    log = generate_log(NexmarkConfig(num_partitions=S, num_batches=4, events_per_batch=256), dev)
+    part = torch.arange(S, device=dev)
+    shared, local = q.init_shared(dev), q.init_local(dev)
+    for i in range(4):
+        shared, local = q.fold(shared, local, log.batch(i), part, batch_idx=i)
+    host = lambda x: x.cpu()  # noqa: E731
+    for spec, st in zip(q.shared_specs, shared):
+        delta = W.delta_since(spec, st, *W.zero_baseline(spec, S, dev))
+        assert bool((delta.slot_wid >= 0).any())
+        mine = map_tensors(lambda x: x[L:2 * L].contiguous(), st)  # rank 1's rows
+        before = ops.KERNELS["delta_merge_join"].launches
+        got = W.join_delta_stack(spec, mine, delta)
+        assert ops.KERNELS["delta_merge_join"].launches == before + 1
+        assert got.slot_wid.shape[0] == L
+        want = wstate_to_numpy(W.join_delta_stack(spec, map_tensors(host, mine),
+                                                  map_tensors(host, delta)))
+        for k, v in wstate_to_numpy(got).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("on", [True, False, None])
 @pytest.mark.parametrize("R,F,dtype", [(16, 16, torch.int32), (1, 5, torch.int32),
                                        (3, 1000, torch.float32), (16, 300, torch.uint8)])
