@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on the same inputs, and at a rank's shape across processes (4 state
    rows against the 16-row stack, phase 11's) bitwise its plain
    version; the standalone kernels are still checked and timed on the
-   stacks the fused launch receives.  The counters' reads
+   stacks the fused launch receives.  The keyed kernels are held at a
+   rank's shape too (phase 11b's): the segment reduce of a step cut to
+   4 owner rows, bitwise (its sums are of 1.0s) and timed, and the reads
+   of 4 owner rows (a rank's gated join is phase 4's launch on the same
+   gathered stack).  The counters' reads
    (``actor_sum``, the left fold over actor rows) are held bitwise against
    the plain version on the card and the CPU, each run's first read timed
    beside ``torch.sum(dim=1)``.  An empty kernel, timed by the same loop,
@@ -182,8 +186,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     a round), wall time to a device synchronise, host µs a sync round, its
     transport's host µs (gather, staging) and bytes a round, and its peak
     memory; rank 0 gathers ``oks``, ``vals`` and ``sync_bytes`` and holds
-    them bitwise equal to phase 4's outputs, handed over by file.  Each
-    rank is joined with a timeout; a failed or late rank fails the run.
+    them bitwise equal to phase 4's outputs, handed over by file.  Then
+    11b, the keyed dataplane across processes in the same ranks: the dense
+    log freed, each rank draws its rows of phase 4's keyed log and runs
+    ``build_keyed_pipeline`` over the ``DistMesh``, 4 owner shards a rank
+    (a step's routing stack in one ``all_to_all``, a round's progress map
+    in one gated ``pmax``): a warm-up round, then the full-size run timed,
+    then the clean, crash-replay, healed and never-healed schedules at
+    ``SHORT_BATCHES``; each rank's state rows against phase 4's by digest,
+    the gathered ``oks``, ``vals``, shuffle and sync bytes bitwise phase
+    4's, one ``segment_reduce`` a step and one ``crdt_merge`` a round a
+    rank; events/s, host µs a step, the exchange's host and staging µs and
+    wire bytes a step against the modelled shuffle bytes, peak memory.
+    Each rank is joined with a timeout; a failed or late rank fails the run.
 12. Print events/s and sync bytes per round per run, with the card.
 13. A JSON line ``{"kernels": [...]}``, then the last line
     ``{"ok": true, "device": {...}}``.
@@ -310,8 +325,9 @@ CALIBRATION: dict = {}
 SERVE_MOE_TOKENS = 128
 # phase 11, the dense dataplane across processes: phase 4's deployment over
 # DIST_WORLD ranks of S // DIST_WORLD partitions each, every query with
-# delta sync and q4 with full sync; the ranks share one card over gloo, or
-# take one card each over NCCL where there are enough
+# delta sync and q4 with full sync, then (11b) phase 4's keyed deployment
+# and its chaos schedules; the ranks share one card over gloo, or take one
+# card each over NCCL where there are enough
 DIST_WORLD = 4
 DIST_RUNS = tuple((qn, True) for qn in QUERIES) + (("q4", False),)
 DIST_TIMEOUT = 600  # seconds for the ranks' processes, start-up included
@@ -1062,59 +1078,80 @@ def check_topk_window(dev, calls: dict) -> dict:
     return row
 
 
+def rank_segment_call(args, kw) -> tuple:
+    """A stacked keyed fold's segment reduce cut to one rank's owner rows
+    (rank 1 of ``DIST_WORLD``): the call that rank makes across processes.
+    Owner row ``s`` holds lanes ``s*n .. (s+1)*n - 1`` and segments ``s*m ..
+    (s+1)*m - 1``; the rank's rows are renumbered from 0."""
+    vals, segs, mask, n_seg = args
+    L = S // DIST_WORLD
+    n, m = vals.shape[0] // S, n_seg // S
+    lanes = slice(L * n, 2 * L * n)
+    kw = dict(kw)
+    if kw.get("init") is not None:
+        kw["init"] = kw["init"][L * m:2 * L * m].contiguous()
+    return (vals[lanes].contiguous(), (segs[lanes] - L * m).contiguous(),
+            mask[lanes].contiguous(), L * m), kw
+
+
 def check_segment_reduce(dev, calls: dict) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import segment_reduce as seg
 
     rows = []
     # the main path: the keyed dataplane's fold of one step, dense q5's at
-    # 10,000 auctions
-    for tag in ("keyed", "q5_10k"):
-        for i, (args, kw) in enumerate(calls[tag]["segment_reduce"]):
-            vals, segs, mask, n_seg = args
-            op, init = kw["op"], kw.get("init")
-            N = vals.shape[0]
-            got = seg.segment_reduce(*args, **kw)
-            want = ref.segment_reduce_ref(*args, **kw)
-            cpu = ref.segment_reduce_ref(*(_to_cpu(a) for a in args),
-                                         **{k: _to_cpu(v) for k, v in kw.items()})
-            name = f"segment_reduce {tag} call {i} op={op} N={N} n_seg={n_seg}"
-            if op == "sum":
-                err = assert_close(name, got, want, SEG_SUM_RTOL)
-            else:
-                err = assert_equal(name, got, want)
-            # each segment folds in lane order from init on both sides
-            assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
-            assert_equal(name + " (second run)", seg.segment_reduce(*args, **kw), got)
-            srt = seg.sort_lanes(vals, segs, mask, n_seg)
-            red = {"sum": "sum", "count": "sum", "max": "amax", "min": "amin"}[op]
-            segm = torch.where(mask, segs, n_seg).long()
-            acc = torch.zeros(n_seg + 1, device=dev)
-            row = {"shape": name, "max_abs_err": err,
-                   **kernel_ms(lambda: seg.reduce_sorted(*srt, n_seg, op=op, init=init)),
-                   "sort_ms": cuda_ms(lambda: seg.sort_lanes(vals, segs, mask, n_seg)),
-                   "wrapper_ms": cuda_ms(lambda: seg.segment_reduce(*args, **kw)),
-                   "plain_ms": cuda_ms(lambda: ref.segment_reduce_ref(*args, **kw)),
-                   "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
-                       0, segm, vals, red, include_self=False))}
-            # host µs of the path's call (sort and launch); the bare ctypes
-            # launch is timed on the kept sorted stream, since the
-            # wrapper's sorted temporaries do not outlive its call
-            bare = wrapper_host_us(seg.KERNEL, lambda: seg.reduce_sorted(*srt, n_seg, op=op,
-                                                                         init=init))
-            # the sort is a dozen launches: 20 calls keep the queue short
-            row.update(host_us=host_us(lambda: ops.segment_reduce(*args, **kw), iters=20),
-                       sort_host_us=host_us(lambda: seg.sort_lanes(vals, segs, mask, n_seg),
-                                            iters=20),
-                       launch_us=bare["launch_us"], reduce_host_us=bare["host_us"])
-            # bytes the reduce needs: every mask byte, the segment and value
-            # of each live lane, init read and the output written; one
-            # operation per live lane and per segment
-            live = int(mask.sum())
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                nbytes(mask, init) + live * 8 + nbytes(got), live + n_seg)
-            rows.append(row)
-            log(json.dumps(row))
+    # 10,000 auctions, and the keyed fold of one rank across processes
+    # (phase 11b): the stacked call cut to the rank's rows, whose sums of
+    # 1.0s must be bitwise
+    main = [(tag, i, args, kw, False) for tag in ("keyed", "q5_10k")
+            for i, (args, kw) in enumerate(calls[tag]["segment_reduce"])]
+    main += [(f"keyed rank of {DIST_WORLD}", i, *rank_segment_call(args, kw), True)
+             for i, (args, kw) in enumerate(calls["keyed"]["segment_reduce"])]
+    for tag, i, args, kw, exact in main:
+        vals, segs, mask, n_seg = args
+        op, init = kw["op"], kw.get("init")
+        N = vals.shape[0]
+        got = seg.segment_reduce(*args, **kw)
+        want = ref.segment_reduce_ref(*args, **kw)
+        cpu = ref.segment_reduce_ref(*(_to_cpu(a) for a in args),
+                                     **{k: _to_cpu(v) for k, v in kw.items()})
+        name = f"segment_reduce {tag} call {i} op={op} N={N} n_seg={n_seg}"
+        if op == "sum" and not exact:
+            err = assert_close(name, got, want, SEG_SUM_RTOL)
+        else:
+            err = assert_equal(name, got, want)
+        # each segment folds in lane order from init on both sides
+        assert_equal(name + " (CPU plain version)", got.cpu(), cpu)
+        assert_equal(name + " (second run)", seg.segment_reduce(*args, **kw), got)
+        srt = seg.sort_lanes(vals, segs, mask, n_seg)
+        red = {"sum": "sum", "count": "sum", "max": "amax", "min": "amin"}[op]
+        segm = torch.where(mask, segs, n_seg).long()
+        acc = torch.zeros(n_seg + 1, device=dev)
+        row = {"shape": name, "max_abs_err": err,
+               **kernel_ms(lambda: seg.reduce_sorted(*srt, n_seg, op=op, init=init)),
+               "sort_ms": cuda_ms(lambda: seg.sort_lanes(vals, segs, mask, n_seg)),
+               "wrapper_ms": cuda_ms(lambda: seg.segment_reduce(*args, **kw)),
+               "plain_ms": cuda_ms(lambda: ref.segment_reduce_ref(*args, **kw)),
+               "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
+                   0, segm, vals, red, include_self=False))}
+        # host µs of the path's call (sort and launch); the bare ctypes
+        # launch is timed on the kept sorted stream, since the
+        # wrapper's sorted temporaries do not outlive its call
+        bare = wrapper_host_us(seg.KERNEL, lambda: seg.reduce_sorted(*srt, n_seg, op=op,
+                                                                     init=init))
+        # the sort is a dozen launches: 20 calls keep the queue short
+        row.update(host_us=host_us(lambda: ops.segment_reduce(*args, **kw), iters=20),
+                   sort_host_us=host_us(lambda: seg.sort_lanes(vals, segs, mask, n_seg),
+                                        iters=20),
+                   launch_us=bare["launch_us"], reduce_host_us=bare["host_us"])
+        # bytes the reduce needs: every mask byte, the segment and value
+        # of each live lane, init read and the output written; one
+        # operation per live lane and per segment
+        live = int(mask.sum())
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes(mask, init) + live * 8 + nbytes(got), live + n_seg)
+        rows.append(row)
+        log(json.dumps(row))
     # ragged edges: empty, one huge segment, all masked, n_seg off the tile
     g = torch.Generator(device=dev).manual_seed(4)
     for N, n_seg, p, one in ((0, 1000, 0.8, False), (1 << 20, 4096, 1.0, True),
@@ -1174,14 +1211,20 @@ def actor_sum_row(dev, name: str, rows, timed: bool) -> dict:
 
 def check_actor_sum(dev, calls: dict) -> dict:
     """The counters' reads the dataplane recorded (q0, q1_ratio, q4, q5, the
-    keyed dataplane, dense q5 at 10,000 auctions), then ragged and strided
-    rows: bitwise, each run's first read timed.  Returns q4's row."""
+    keyed dataplane, dense q5 at 10,000 auctions), the keyed reads at a
+    rank's rows, then ragged and strided rows: bitwise, each run's first
+    read timed.  Returns q4's row."""
     rows = []
     for tag in ("q0", "q1_ratio", "q4", "q5", "keyed", "q5_10k"):
         for i, (args, kw) in enumerate(calls[tag]["actor_sum"]):
             rows.append(actor_sum_row(dev, f"actor_sum {tag} read {i}", args[0], timed=i == 0))
             rows[-1]["run"] = tag
             log(json.dumps(rows[-1]))
+    # the keyed reads of one rank across processes (phase 11b): its owner rows
+    L = S // DIST_WORLD
+    for i, (args, kw) in enumerate(calls["keyed"]["actor_sum"]):
+        actor_sum_row(dev, f"actor_sum keyed read {i}, rank 1 of {DIST_WORLD}'s rows",
+                      args[0][L:2 * L].contiguous(), timed=False)
     g = torch.Generator(device=dev).manual_seed(8)
     for S_, W_, P_, key in ((1, 1, 1, ()), (16, 8, 4, (1,)), (3, 4, 16, (2049,)),
                             (16, 64, 64, (5,)), (2, 2, 7, (1000, 3))):
@@ -1234,6 +1277,8 @@ def check_crdt_merge(dev, calls: dict, floor: dict) -> dict:
         return torch.where(on, crdt_merge.crdt_merge(stack, op).unsqueeze(0)
                            .expand_as(stack).contiguous(), stack)
 
+    # across processes (phase 11b) each rank makes this very launch, on the
+    # gathered [S, S] stack, and keeps its rows (DistMesh.pmax)
     assert_equal(name + " (parent's sequence)", exchange(), parent())
     row = {"shape": name, "max_abs_err": 0.0,
            **kernel_ms(lambda: ops.crdt_merge(stack, op, **kw)),
@@ -1512,10 +1557,18 @@ def host_shuffle_bytes(shards, log_, nb: int) -> np.ndarray:
     return acc
 
 
-def run_keyed(dev) -> tuple[list, dict]:
+def hand_keyed(handover: Path, tag: str, state, outs, seconds: float | None = None) -> None:
+    """A keyed run's ``(oks, vals, shuffle, sync)``, its state's row digests
+    and its seconds, left in ``handover/<tag>.pt`` for phase 11b."""
+    torch.save({"outputs": [x.cpu() for x in outs], "digests": state_digests(state),
+                "seconds": seconds}, handover / f"{tag}.pt")
+
+
+def run_keyed(dev, handover: Path) -> tuple[list, dict]:
     """Phase 4, keyed: the hash-sharded dataplane at full size, its chaos
     schedules, and dense q5 at 10,000 auctions; returns the result rows and
-    each kernel's launches."""
+    each kernel's launches.  The full-size run's and the chaos runs'
+    outputs, state digests and seconds go to ``handover`` for phase 11b."""
     from repro_torch.core.wcrdt import KeyShards
     from repro_torch.core.window import as_assigner
     from repro_torch.launch.mesh import make_data_mesh
@@ -1596,6 +1649,7 @@ def run_keyed(dev) -> tuple[list, dict]:
     for a, b_ in zip(o1, o2):
         if not torch.equal(a, b_):
             raise AssertionError("keyed: a second run's outputs differ")
+    hand_keyed(handover, "keyed", s1, o1, results[0]["seconds"])
     for row in results:
         row["complete_windows"] = done
         log(json.dumps(row))
@@ -1624,9 +1678,12 @@ def run_keyed(dev) -> tuple[list, dict]:
         for a, b_ in zip(short.read(st, table), clean_out):
             if not torch.equal(a, b_):
                 raise AssertionError(f"chaos {name}: outputs differ from the clean run")
-    st, *_ = short.fold(klog, base, torch.zeros(nb // SYNC_EVERY, dtype=torch.bool))
-    if short.read(st, table)[0].sum() != 0:
+    hand_keyed(handover, "keyed.clean", clean[0], (*clean_out, *clean[1:3]))
+    st, shuffle, sync, _ = short.fold(klog, base, torch.zeros(nb // SYNC_EVERY, dtype=torch.bool))
+    never = short.read(st, table)
+    if never[0].sum() != 0:
         raise AssertionError("chaos: a plane never healed emitted a window")
+    hand_keyed(handover, "keyed.never", st, (*never, shuffle, sync))
     log(f"chaos ({nb} batches): crash-replay and a healed partition end byte identical to the "
         f"clean run ({int(clean_out[0][0].sum())} complete windows); a plane never healed "
         "emits none")
@@ -3300,11 +3357,11 @@ def dist_rank(rank: int, world: int, backend: str, work: Path, handover: Path) -
             with WallTimer(mesh.device) as tm:
                 out = pipe(log_)
             counts = check_dense_launches(f"rank {rank} {qn} {mode}", q, delta, n_rounds)
-            st = mesh.stats
+            st = mesh.stats.gather
             row = {"query": qn, "sync": mode, "seconds": tm.dt,
                    "host_us_per_round": tm.dt / n_rounds * 1e6,
-                   "gathers_per_round": st.gathers / n_rounds,
-                   "gather_us_per_round": st.gather_s / n_rounds * 1e6,
+                   "gathers_per_round": st.calls / n_rounds,
+                   "gather_us_per_round": st.seconds / n_rounds * 1e6,
                    "staging_us_per_round": st.staging_s / n_rounds * 1e6,
                    "sent_bytes_per_round": st.sent_bytes / n_rounds,
                    "received_bytes_per_round": st.received_bytes / n_rounds,
@@ -3321,19 +3378,183 @@ def dist_rank(rank: int, world: int, backend: str, work: Path, handover: Path) -
                 row["phase4_seconds"] = want["seconds"]
             rows.append(row)
             del out, oks, vals, sb
+        del log_
+        keyed = dist_keyed(rank, world, mesh, handover)
         (work / f"rank{rank}.json").write_text(json.dumps(
             {"rank": rank, "device": str(mesh.device), "partitions": list(mesh.partitions),
-             "log_s": log_s, "rows": rows}))
+             "log_s": log_s, "rows": rows, "keyed": keyed}))
     finally:
         dist.destroy_process_group()
 
 
+def dist_keyed(rank: int, world: int, mesh, handover: Path) -> dict:
+    """Phase 11b in one rank: draw its rows of phase 4's keyed log, run the
+    keyed dataplane over the ``DistMesh`` at full size (a warm-up round,
+    then the timed fold and read) and the chaos schedules at
+    ``SHORT_BATCHES``; check its launches and its state rows' digests, and
+    gather every rank's outputs (rank 0 holds them bitwise against phase
+    4's, from ``handover``).  Returns the rank's figures."""
+    import torch.distributed as dist
+
+    from repro_torch.core.wcrdt import KeyShards
+    from repro_torch.core.window import as_assigner
+    from repro_torch.launch.stream import (
+        build_keyed_pipeline, default_fold_schedule, gather_outputs,
+    )
+    from repro_torch.obs.timing import WallTimer
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    t0 = time.perf_counter()
+    nx = NexmarkConfig(num_partitions=S, num_batches=NUM_BATCHES, events_per_batch=B,
+                       rate_per_partition=RATE, seed=SEED, num_auctions=NUM_KEYS,
+                       key_skew=KEY_SKEW)
+    klog = generate_log(nx, mesh.device, partitions=mesh.partitions)
+    torch.cuda.synchronize(mesh.device)
+    log_s = time.perf_counter() - t0
+    shards = KeyShards(NUM_KEYS, S)
+    table = shards.key_table(mesh.device)
+    assigner = as_assigner(WINDOW_MS, WINDOW_MS // 2)
+    mine = slice(mesh.partitions.start, mesh.partitions.stop)
+
+    def pipeline(nb: int):
+        n = int(assigner.first_dirty_wid(nb * nx.batch_span_ms)) + 1  # + the open window
+        return build_keyed_pipeline(mesh, shards, window_len=WINDOW_MS, num_slots=KEYED_SLOTS,
+                                    sync_every=SYNC_EVERY, n_windows=n, first_window=0)
+
+    def held(what: str, tag: str, state, outs) -> None:
+        """This rank's state rows against phase 4's digests; every rank's
+        outputs, gathered, against phase 4's on rank 0."""
+        want = torch.load(handover / f"{tag}.pt")
+        if state_digests(state) != want["digests"][mine]:
+            raise AssertionError(f"11b {what}: rank {rank}'s state rows differ from phase 4's")
+        got = gather_outputs(mesh, tuple(outs))
+        if rank == 0:
+            for name, a, b_ in zip(("oks", "vals", "shuffle_bytes", "sync_bytes"), got,
+                                   want["outputs"]):
+                if not torch.equal(a.cpu(), b_):
+                    raise AssertionError(f"11b {what} {name}: {world} ranks differ from "
+                                         "phase 4's stacked run")
+
+    # the full-size run
+    sched = default_fold_schedule(S, NUM_BATCHES)
+    rounds = NUM_BATCHES // SYNC_EVERY
+    wm = torch.ones(rounds, dtype=torch.bool)
+    pipe = pipeline(NUM_BATCHES)
+    pipe.fold(klog, sched[:, :SYNC_EVERY], wm[:1])  # warm-up: one sync round
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    reset_launches()
+    mesh.stats.reset()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    with WallTimer(mesh.device) as tm:
+        state, shuffle, sync, _ = pipe.fold(klog, sched, wm)
+        oks, vals = pipe.read(state, table)
+    counts = check_launches(f"11b rank {rank} keyed", {"segment_reduce", "crdt_merge",
+                                                      "actor_sum"})
+    if counts["segment_reduce"] != NUM_BATCHES or counts["crdt_merge"] != rounds:
+        raise AssertionError(f"11b rank {rank}: launches {counts}, expected one fold a step, "
+                             "one join a round")
+    ex, ga = mesh.stats.exchange, mesh.stats.gather
+    row = {"seconds": tm.dt, "host_us_per_step": tm.dt / NUM_BATCHES * 1e6,
+           "exchanges_per_step": ex.calls / NUM_BATCHES,
+           "exchange_us_per_step": ex.seconds / NUM_BATCHES * 1e6,
+           "exchange_staging_us_per_step": ex.staging_s / NUM_BATCHES * 1e6,
+           "wire_bytes_per_step": ex.sent_bytes / NUM_BATCHES,
+           "received_bytes_per_step": ex.received_bytes / NUM_BATCHES,
+           "modelled_shuffle_bytes_per_step": float(shuffle.sum()) / NUM_BATCHES,
+           "gathers": ga.calls, "gather_us": ga.seconds * 1e6, "gather_staging_us":
+           ga.staging_s * 1e6, "peak_gb": torch.cuda.max_memory_allocated(mesh.device) / 1e9,
+           "launches": counts, "log_s": log_s}
+    held("full size", "keyed", state, (oks, vals, shuffle, sync))
+    row["phase4_seconds"] = torch.load(handover / "keyed.pt")["seconds"]
+    del state, oks, vals
+
+    # chaos at SHORT_BATCHES on the same log
+    t1 = time.perf_counter()
+    nb = SHORT_BATCHES
+    base = default_fold_schedule(S, nb)
+    short = pipeline(nb)
+    k = CRASH_AFTER + 1
+    crash = torch.cat([torch.arange(k), torch.arange(REPLAY_FROM, k), torch.arange(k, nb)])
+    crash = crash.to(torch.int32).expand(S, -1).contiguous()
+    cut = torch.ones(nb // SYNC_EVERY, dtype=torch.bool)
+    cut[PARTITIONED[0]:PARTITIONED[1]] = False
+    for what, tag, sch, plane in (
+            ("clean", "keyed.clean", base, torch.ones(nb // SYNC_EVERY, dtype=torch.bool)),
+            ("crash-replay", "keyed.clean", crash,
+             torch.ones(crash.shape[1] // SYNC_EVERY, dtype=torch.bool)),
+            ("partition healed", "keyed.clean", base, cut),
+            ("never healed", "keyed.never", base, torch.zeros(nb // SYNC_EVERY,
+                                                              dtype=torch.bool))):
+        st, shuffle, sync, _ = short.fold(klog, sch, plane)
+        outs = (*short.read(st, table), shuffle, sync)
+        if what == "never healed" and outs[0].sum() != 0:
+            raise AssertionError("11b chaos: a plane never healed emitted a window")
+        # shuffle bytes count the replayed steps too: only the clean and
+        # never-healed runs hand theirs over
+        if what in ("crash-replay", "partition healed"):
+            want = torch.load(handover / f"{tag}.pt")
+            if state_digests(st) != want["digests"][mine]:
+                raise AssertionError(f"11b chaos {what}: rank {rank}'s state rows differ "
+                                     "from phase 4's clean run")
+            got = gather_outputs(mesh, outs[:2])
+            if rank == 0 and not all(torch.equal(a.cpu(), b_)
+                                     for a, b_ in zip(got, want["outputs"][:2])):
+                raise AssertionError(f"11b chaos {what}: outputs differ from phase 4's "
+                                     "clean run")
+        else:
+            held(f"chaos {what}", tag, st, outs)
+    row["chaos_seconds"] = time.perf_counter() - t1
+    row["seconds_11b"] = time.perf_counter() - t0
+    return row
+
+
+def keyed_row(keyed: list, backend: str, cards: int, card: str) -> dict:
+    """Phase 11b's result row from every rank's figures (``dist_keyed``),
+    printed, with 11b's seconds on a line of their own."""
+    secs = max(k["seconds"] for k in keyed)
+    n_events = S * NUM_BATCHES * B
+    row = {"phase": "11b", "query": "q5_keyed", "sync": "watermark", "backend": backend,
+           "ranks": DIST_WORLD, "cards": min(cards, DIST_WORLD), "events": n_events,
+           "seconds": secs, "events_per_s": n_events / secs,
+           "phase4_events_per_s": n_events / keyed[0]["phase4_seconds"],
+           "host_us_per_step": secs / NUM_BATCHES * 1e6,
+           "phase4_host_us_per_step": keyed[0]["phase4_seconds"] / NUM_BATCHES * 1e6,
+           **{k: sum(x[k] for x in keyed) / DIST_WORLD
+              for k in ("exchanges_per_step", "exchange_us_per_step",
+                        "exchange_staging_us_per_step", "wire_bytes_per_step",
+                        "received_bytes_per_step", "modelled_shuffle_bytes_per_step")},
+           "gather_us_per_round": sum(x["gather_us"] for x in keyed) / DIST_WORLD
+           / (NUM_BATCHES // SYNC_EVERY),
+           "peak_gb_per_rank": max(x["peak_gb"] for x in keyed),
+           "launches_per_rank": [x["launches"] for x in keyed],
+           "keyed_log_s": max(x["log_s"] for x in keyed),
+           "chaos_seconds": max(x["chaos_seconds"] for x in keyed),
+           "outputs": "bitwise phase 4's, chaos runs included", "card": card}
+    row["wire_over_modelled"] = (row["wire_bytes_per_step"]
+                                 / row["modelled_shuffle_bytes_per_step"])
+    log(json.dumps(row))
+    log(f"phase 11b q5_keyed {backend} x{DIST_WORLD}: {row['events_per_s']:.6e} events/s "
+        f"(phase 4 {row['phase4_events_per_s']:.6e}), {row['host_us_per_step']:.1f} host us a "
+        f"step (phase 4 {row['phase4_host_us_per_step']:.1f}), exchange "
+        f"{row['exchange_us_per_step']:.1f} us + {row['exchange_staging_us_per_step']:.1f} us "
+        f"staging a step a rank; wire {row['wire_bytes_per_step']:.1f} bytes a rank a step "
+        f"against {row['modelled_shuffle_bytes_per_step']:.1f} modelled "
+        f"({row['wire_over_modelled']:.2f}x); peak {row['peak_gb_per_rank']:.2f} GB a rank; "
+        f"launches a rank {row['launches_per_rank'][0]}; outputs and chaos runs bitwise "
+        f"phase 4's {card}")
+    log(f"phase 11b (keyed) {max(x['seconds_11b'] for x in keyed):.1f} s in the ranks: log "
+        f"rows, warm-up, full-size run and {SHORT_BATCHES}-batch chaos runs")
+    return row
+
+
 def run_dist_dataplane(card: str, handover: Path, tmp: Path) -> list:
-    """Phase 11: ``DIST_WORLD`` rank processes over gloo on one card, or
-    NCCL with one card a rank where there are enough; each joined with a
-    timeout, a failed or late one failing the phase.  Prints each run's
-    events/s beside phase 4's, host µs a round, the transport's host µs and
-    bytes a round, and the modelled sync bytes a round."""
+    """Phase 11 and 11b: ``DIST_WORLD`` rank processes over gloo on one
+    card, or NCCL with one card a rank where there are enough; each joined
+    with a timeout, a failed or late one failing the phase.  Prints each
+    dense run's events/s beside phase 4's, host µs a round, the transport's
+    host µs and bytes a round, and the modelled sync bytes a round; then
+    the keyed run's row (:func:`keyed_row`)."""
     torch.cuda.empty_cache()  # phase 4's log and the model phases' blocks
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= DIST_WORLD else "gloo"
@@ -3402,8 +3623,28 @@ def run_dist_dataplane(card: str, handover: Path, tmp: Path) -> list:
             f"gathered {row['sent_bytes_per_round'] / L:.1f} bytes a replica a round against "
             f"{row['modelled_sync_bytes_per_round']:.1f} modelled; outputs bitwise phase 4's "
             f"{card}")
+    results.append(keyed_row([x["keyed"] for x in ranks], backend, cards, card))
     log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
     return results
+
+
+def state_digests(state) -> list[str]:
+    """One sha256 a replica row of a ``WState``, over every field's bytes
+    in that row: phase 4's keyed states handed to phase 11b's ranks, each
+    holding its own rows."""
+    import hashlib
+
+    from repro_torch.convert import wstate_to_numpy
+
+    fields = sorted(wstate_to_numpy(state).items())
+    out = []
+    for r in range(state.slot_wid.shape[0]):
+        h = hashlib.sha256()
+        for k, x in fields:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(x[r]).tobytes())
+        out.append(h.hexdigest())
+    return out
 
 
 def same_state(a, b, what: str) -> None:
@@ -3519,7 +3760,7 @@ def run_phases(tmp: Path) -> int:
     results, launches = run_dataplane(dev, handover)
     profile_share(dev)
     log(f"dense runs done at {time.perf_counter() - t_start:.1f} s")
-    keyed_results, keyed_launches, _ = run_keyed(dev)
+    keyed_results, keyed_launches, _ = run_keyed(dev, handover)
     results += keyed_results
     for k, c in keyed_launches.items():
         launches[k] += c
@@ -3552,10 +3793,10 @@ def run_phases(tmp: Path) -> int:
             cells.kill()
             cells.wait()
 
-    log(f"== phase 11: the dense dataplane across processes, {DIST_WORLD} ranks of "
-        f"{S // DIST_WORLD} partitions {card}")
+    log(f"== phase 11: the dense and (11b) keyed dataplanes across processes, {DIST_WORLD} "
+        f"ranks of {S // DIST_WORLD} partitions {card}")
     run_dist_dataplane(card, handover, tmp)
-    log(f"dense dataplane across processes done at {time.perf_counter() - t_start:.1f} s")
+    log(f"dataplanes across processes done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"== phase 12: throughput {card}")
     for r in results:

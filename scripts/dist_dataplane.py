@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Phase 11 of ``chip_smoke.py`` alone: the dense dataplane across processes.
+"""Phase 11 of ``chip_smoke.py`` alone: the dense and keyed dataplanes
+across processes.
 
   python3 scripts/dist_dataplane.py
 
-Builds the kernels, runs phase 4's dense runs at the full-size deployment
-(their outputs are what the ranks are held to, handed over by file), then
-phase 11: 4 rank processes of 4 partitions each, NCCL with one card a rank
-where the machine shows 4 cards, else gloo with the ranks sharing one.
-Prints both phases' lines, then one JSON line of phase 11's rows.  Needs
-an NVIDIA card.
+Builds the kernels, runs phase 4's dense runs and its keyed runs (the
+full-size keyed run, the chaos schedules, dense q5 at 10,000 auctions) at
+the full-size deployment (their outputs are what the ranks are held to,
+handed over by file), then phase 11 and 11b: 4 rank processes of 4
+partitions each, NCCL with one card a rank where the machine shows 4
+cards, else gloo with the ranks sharing one.  Prints the phases' lines,
+then one JSON line of phase 11's rows, 11b's last.  Needs an NVIDIA card.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ def main() -> int:
         handover.mkdir()
         cs.run_dataplane(torch.device("cuda"), handover)
         cs.log(f"phase 4's dense runs done at {time.perf_counter() - t0:.1f} s")
+        cs.run_keyed(torch.device("cuda"), handover)
+        cs.log(f"phase 4's keyed runs done at {time.perf_counter() - t0:.1f} s")
         rows = cs.run_dist_dataplane(card, handover, tmp)
     cs.log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"phase11": rows}))

@@ -73,11 +73,14 @@ def map_fields(fn: Callable[..., torch.Tensor], first, *rest):
 
 def map_tensors(fn: Callable[..., torch.Tensor], first, *rest):
     """Apply ``fn`` to every tensor of a (nested) dataclass state, such as a
-    ``WState`` holding a CRDT; ``None`` fields pass through."""
+    ``WState`` holding a CRDT, or of a tuple of them; ``None`` fields pass
+    through."""
     if isinstance(first, torch.Tensor):
         return fn(first, *rest)
     if first is None:
         return None
+    if isinstance(first, tuple):
+        return tuple(map_tensors(fn, *parts) for parts in zip(first, *rest))
     return type(first)(**{
         f.name: map_tensors(fn, getattr(first, f.name), *(getattr(r, f.name) for r in rest))
         for f in dataclasses.fields(first)

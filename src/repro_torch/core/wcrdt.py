@@ -622,19 +622,21 @@ def shard_topk_read(spec: WSpec, state: WState, wid: int, key_table: torch.Tenso
     """Cross-shard top-k read of window ``wid`` over a sharded keyed counter
     (docs/protocol.md §6), without gathering the key ranges.
 
-    Each shard reduces its ``[width]`` range to k ``(count, key)``
+    ``state`` and ``key_table`` hold the mesh's ``L = mesh.local_size``
+    shards.  Each shard reduces its ``[width]`` range to k ``(count, key)``
     candidates (padded locals masked through the ``key_table`` sentinel),
-    the ``[S, k]`` candidates are gathered, and the global top k is chosen
-    by (count desc, global key asc).  Returns ``((counts f32[S, k], keys
-    i64[S, k]), ok bool[S])``, the same on every shard; ``ok`` requires the
-    window complete and unevicted on every shard."""
-    counts, ok = window_value(spec, state, wid)  # [S, width]
-    S = counts.shape[0]
+    the ``[S, k]`` candidates and every shard's ``ok`` are gathered in one
+    collective, and the global top k is chosen by (count desc, global key
+    asc).  Returns ``((counts f32[L, k], keys i64[L, k]), ok bool[L])``, the
+    same on every shard; ``ok`` requires the window complete and unevicted
+    on every shard of the mesh, not only on the ones this process holds."""
+    counts, ok = window_value(spec, state, wid)  # [L, width]
+    L = mesh.local_size
     masked = torch.where(key_table < num_keys, counts, float("-inf"))
     if k == 1:
         cmax = masked.amax(1, keepdim=True)
         ckey = torch.where(masked == cmax, key_table, num_keys).amin(1)
-        cand_c, cand_k = mesh.all_gather(cmax.squeeze(1)), mesh.all_gather(ckey)  # [S]
+        cand_c, cand_k, oks = mesh.all_gather((cmax.squeeze(1), ckey, ok))  # [S]
         gmax = cand_c.amax()
         gkey = torch.where(cand_c == gmax, cand_k, num_keys).amin()
         top = (gmax.reshape(1), gkey.reshape(1))
@@ -643,7 +645,8 @@ def shard_topk_read(spec: WSpec, state: WState, wid: int, key_table: torch.Tenso
         cv, ci = torch.sort(masked, dim=1, descending=True, stable=True)
         cv, ci = cv[:, :k], ci[:, :k]
         ck = torch.where(cv > float("-inf"), key_table.gather(1, ci), num_keys)
-        sv, sk = ref.lex_sort(-mesh.all_gather(cv).reshape(-1), mesh.all_gather(ck).reshape(-1))
+        cand_v, cand_k, oks = mesh.all_gather((cv, ck, ok))  # [S, k]
+        sv, sk = ref.lex_sort(-cand_v.reshape(-1), cand_k.reshape(-1))
         top = (-sv[:k], sk[:k])
-    every = ok.all().expand(S)
-    return (top[0].expand(S, k), top[1].expand(S, k)), every
+    every = oks.all().expand(L)
+    return (top[0].expand(L, k), top[1].expand(L, k)), every

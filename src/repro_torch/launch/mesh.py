@@ -9,10 +9,12 @@ optionally gated), and ``all_to_all`` is a ``[S_src, S_dst, ...]``
 transpose.  :class:`DistMesh` spreads the rows over the ranks of a
 ``torch.distributed`` process group, each rank holding a contiguous group
 of ``local_size`` partitions (JAX's partition-per-device ``shard_map``
-when ``local_size`` is 1): its ``all_gather`` is a real collective.  The
+when ``local_size`` is 1), and its collectives are real ones: a state's
+tensors travel as the bytes of one buffer, one collective a call.  The
 dense dataplane reaches replicas only through ``size``, ``local_size``,
-``partitions``, ``device``, ``all_gather`` and ``replicate``, which both
-meshes offer.
+``partitions``, ``device``, ``all_gather`` and ``replicate``; the keyed
+dataplane adds ``all_to_all`` (its routing stack) and the gated ``pmax``
+(its progress map).  Both meshes offer all of them.
 
 The production meshes of the dry run (:func:`make_production_mesh`,
 :func:`make_mesh`) are the JAX package's shapes and axis names as
@@ -64,36 +66,51 @@ class StackMesh:
         """Elementwise max over the replicas, broadcast back to each; where
         the bool scalar ``where`` is False, each replica keeps its own row
         (``torch.where(where, pmax(x), x)``, read on the device).  One
-        ``crdt_merge`` launch on the card; a multi-device mesh would apply
+        ``crdt_merge`` launch on the card; ``DistMesh.pmax`` applies
         ``where`` after its collective."""
         return ops.crdt_merge(x, "max", rows=True, where=where)
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """Row ``s`` of ``x`` ``[S_src, S_dst, ...]`` sends block ``d`` to
-        replica ``d``: every replica's received blocks, ``[S_dst, S_src,
-        ...]`` (``lax.all_to_all`` with ``split_axis=0, concat_axis=0,
-        tiled=True`` on each device)."""
-        return x.transpose(0, 1).contiguous()
+    def all_to_all(self, state):
+        """Row ``s`` of every tensor ``[S_src, S_dst, ...]`` of ``state``
+        sends block ``d`` to replica ``d``: every replica's received blocks,
+        ``[S_dst, S_src, ...]`` (``lax.all_to_all`` with ``split_axis=0,
+        concat_axis=0, tiled=True`` on each device)."""
+        return map_tensors(lambda x: x.transpose(0, 1).contiguous(), state)
 
 
 @dataclasses.dataclass
-class GatherStats:
-    """What a :class:`DistMesh`'s gathers cost this rank since the last
-    :meth:`reset`: host seconds inside the collective call (under NCCL the
-    enqueue alone), host seconds copying between the card and pinned host
-    memory (gloo's staging; the device-to-host copy waits for the work
-    queued before it), and the bytes the rank sent (its own rows) and
-    received (every rank's rows)."""
+class CollectiveStats:
+    """What one kind of a :class:`DistMesh`'s collectives cost this rank
+    since the last :meth:`reset`: the calls, host seconds inside the
+    collective call (under NCCL the enqueue alone), host seconds copying
+    between the card and pinned host memory (gloo's staging; the
+    device-to-host copy waits for the work queued before it), and the bytes
+    the rank handed the collective and got back from it."""
 
-    gathers: int = 0
+    calls: int = 0
     sent_bytes: int = 0
     received_bytes: int = 0
-    gather_s: float = 0.0
+    seconds: float = 0.0
     staging_s: float = 0.0
 
     def reset(self) -> None:
-        self.gathers = self.sent_bytes = self.received_bytes = 0
-        self.gather_s = self.staging_s = 0.0
+        self.calls = self.sent_bytes = self.received_bytes = 0
+        self.seconds = self.staging_s = 0.0
+
+
+@dataclasses.dataclass
+class MeshStats:
+    """A :class:`DistMesh`'s collectives by kind: ``gather`` (``all_gather``,
+    and the gather inside ``pmax``: the rank sends its own rows and receives
+    every rank's) and ``exchange`` (``all_to_all``: the rank sends a block
+    to every rank, itself included, and receives one from each)."""
+
+    gather: CollectiveStats = dataclasses.field(default_factory=CollectiveStats)
+    exchange: CollectiveStats = dataclasses.field(default_factory=CollectiveStats)
+
+    def reset(self) -> None:
+        self.gather.reset()
+        self.exchange.reset()
 
 
 def _tensors(state) -> list[torch.Tensor]:
@@ -110,6 +127,26 @@ def _all_gather_single(out: torch.Tensor, x: torch.Tensor) -> None:
     (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, x)
 
 
+def _all_to_all_single(out: torch.Tensor, x: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    dist.all_to_all_single(out, x)  # equal splits of the leading axis
+
+
+def _byte_rows(leaves: list, n: int) -> tuple[torch.Tensor, list[int]]:
+    """Each tensor's bytes as ``[n, -1]`` uint8 rows, concatenated into one
+    buffer (nothing is cast), and each tensor's width in it."""
+    rows = [x.contiguous().view(torch.uint8).reshape(n, -1) for x in leaves]
+    return (torch.cat(rows, 1) if len(rows) > 1 else rows[0]), [r.shape[1] for r in rows]
+
+
+def _columns(buf: torch.Tensor, widths: list[int]):
+    """The inverse of :func:`_byte_rows` on a buffer of any row count: each
+    tensor's columns in turn, contiguous."""
+    for a, b in itertools.pairwise(itertools.accumulate(widths, initial=0)):
+        yield buf[:, a:b].contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class DistMesh:
     """``size`` partitions over the ``world`` ranks of the default process
@@ -121,7 +158,7 @@ class DistMesh:
     world: int
     device: torch.device
     backend: str  # "gloo" or "nccl"
-    stats: GatherStats = dataclasses.field(default_factory=GatherStats, compare=False)
+    stats: MeshStats = dataclasses.field(default_factory=MeshStats, compare=False)
 
     @property
     def local_size(self) -> int:
@@ -132,52 +169,79 @@ class DistMesh:
         L = self.local_size
         return range(self.rank * L, (self.rank + 1) * L)
 
-    def all_gather(self, state):
-        """Every tensor ``[local_size, ...]`` of ``state`` as its ``[size,
-        ...]`` stack in rank (so partition) order.  The rows of every tensor
-        travel as their bytes in one buffer, one collective a state; nothing
-        is cast."""
-        L = self.local_size
+    def _leaves(self, state, what: str, lead: tuple) -> list[torch.Tensor]:
         leaves = _tensors(state)
         for x in leaves:
-            if x.dim() == 0 or x.shape[0] != L:
-                raise ValueError(f"all_gather: a tensor of shape {tuple(x.shape)}, "
-                                 f"expected {L} leading rows")
-        rows = [x.contiguous().view(torch.uint8).reshape(L, -1) for x in leaves]
-        gathered = self._gather_bytes(torch.cat(rows, 1) if len(rows) > 1 else rows[0])
-        bounds = list(itertools.accumulate((r.shape[1] for r in rows), initial=0))
-        spans = iter(zip(bounds, bounds[1:]))
+            if tuple(x.shape[:len(lead)]) != lead:
+                raise ValueError(f"{what}: a tensor of shape {tuple(x.shape)}, expected "
+                                 f"leading dims {lead}")
+        return leaves
 
-        def unpack(x):
-            a, b = next(spans)
-            return gathered[:, a:b].contiguous().view(x.dtype).reshape(self.size, *x.shape[1:])
+    def all_gather(self, state):
+        """Every tensor ``[local_size, ...]`` of ``state`` as its ``[size,
+        ...]`` stack in rank (so partition) order, one collective a state."""
+        leaves = self._leaves(state, "all_gather", (self.local_size,))
+        buf, widths = _byte_rows(leaves, self.local_size)
+        out = self._collective(self.stats.gather, buf, (self.size, buf.shape[1]),
+                               _all_gather_single)
+        cols = _columns(out, widths)
+        return map_tensors(
+            lambda x: next(cols).view(x.dtype).reshape(self.size, *x.shape[1:]), state)
 
-        return map_tensors(unpack, state)
+    def all_to_all(self, state):
+        """Each tensor ``[local_size, size, ...]`` of ``state``: this rank's
+        source rows, each with one block for every destination partition.
+        Returns ``[local_size, size, ...]``, the blocks every source sent to
+        this rank's partitions, sources in partition order (``lax.all_to_all``
+        with ``split_axis=0, concat_axis=0, tiled=True``; ``StackMesh``'s at
+        one rank).  One collective a state, of ``world`` equal splits."""
+        L, R = self.local_size, self.world
+        leaves = self._leaves(state, "all_to_all", (L, self.size))
+        # [L_src, R, L_dst, ...] -> [R, L_src, L_dst, ...]: a split a rank
+        split = [x.reshape(L, R, L, *x.shape[2:]).transpose(0, 1) for x in leaves]
+        buf, widths = _byte_rows(split, R)
+        out = self._collective(self.stats.exchange, buf, tuple(buf.shape), _all_to_all_single)
+        cols = _columns(out, widths)
+        # [R_src, L_src, L_dst, ...] -> [L_dst, S_src, ...]
+        return map_tensors(lambda x: next(cols).view(x.dtype).reshape(R, L, L, *x.shape[2:])
+                           .movedim(2, 0).reshape(x.shape), state)
 
-    def _gather_bytes(self, buf: torch.Tensor) -> torch.Tensor:
-        """``[local_size, n]`` bytes -> ``[size, n]``.  gloo moves a CUDA
-        buffer through pinned host memory, staged here and not by gloo."""
-        shape = (self.size, buf.shape[1])
-        st = self.stats
-        st.gathers += 1
+    def pmax(self, x: torch.Tensor, where: torch.Tensor | None = None) -> torch.Tensor:
+        """Elementwise max of ``x`` ``[local_size, F]`` over all ``size``
+        rows, for each of this rank's rows; where the bool scalar ``where``
+        is False each row keeps its own.  An ``all_gather`` then one gated
+        ``crdt_merge`` launch over the ``[size, F]`` stack, of which the rank
+        keeps its rows: ``where`` is applied after the collective, which runs
+        in every call whatever it says (a skipped one would need a host read
+        of ``where``, and ranks that disagreed would hang)."""
+        L = self.local_size
+        joined = ops.crdt_merge(self.all_gather(x), "max", rows=True, where=where)
+        return joined[self.rank * L:(self.rank + 1) * L]
+
+    def _collective(self, st: CollectiveStats, buf: torch.Tensor, shape: tuple,
+                    call) -> torch.Tensor:
+        """``call(out, buf)`` into a new uint8 ``out`` of ``shape``, counted
+        in ``st``.  gloo moves a CUDA buffer through pinned host memory,
+        staged here and not by gloo."""
+        st.calls += 1
         st.sent_bytes += buf.numel()
-        st.received_bytes += shape[0] * shape[1]
+        st.received_bytes += math.prod(shape)
         if self.backend == "gloo" and buf.is_cuda:
             t0 = time.perf_counter()
             host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
             host.copy_(buf)
             out = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
             t1 = time.perf_counter()
-            _all_gather_single(out, host)
+            call(out, host)
             t2 = time.perf_counter()
             out = out.to(buf.device)
             st.staging_s += (t1 - t0) + (time.perf_counter() - t2)
-            st.gather_s += t2 - t1
+            st.seconds += t2 - t1
             return out
         out = torch.empty(shape, dtype=torch.uint8, device=buf.device)
         t1 = time.perf_counter()
-        _all_gather_single(out, buf)
-        st.gather_s += time.perf_counter() - t1
+        call(out, buf)
+        st.seconds += time.perf_counter() - t1
         return out
 
     def replicate(self, state):

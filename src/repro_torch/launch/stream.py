@@ -9,9 +9,10 @@ background-sync round — delta-state by default (each replica's dirty
 slots, gathered from every replica, merged and joined into each by one
 fused delta-merge launch a spec), or the full-state join with
 ``delta_sync=False``.  Windows are read on the device at the end.
-:func:`build_keyed_pipeline` is the hash-sharded keyed dataplane, on a
-``StackMesh``: keys are routed to one owner partition each, folded by the
-segment-reduce kernel, and only watermarks are synced.
+:func:`build_keyed_pipeline` is the hash-sharded keyed dataplane, on
+either mesh: keys are routed to one owner partition each (the mesh's
+``all_to_all``), folded by the segment-reduce kernel, and only watermarks
+are synced (the mesh's gated ``pmax``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --query q4 --partitions 16
@@ -111,10 +112,12 @@ def build_pipeline(
 
 
 def gather_outputs(mesh: StackMesh | DistMesh, out: tuple) -> tuple:
-    """A pipeline's ``(oks, vals, sync_bytes)`` rows stacked over every
-    partition, ``[S, ...]`` each (on a ``StackMesh``, ``out`` itself); a
+    """A pipeline's output rows stacked over every partition, ``[S, ...]``
+    each (on a ``StackMesh``, ``out`` itself): ``build_pipeline``'s ``(oks,
+    vals, sync_bytes)``, or a keyed pipeline's ``(oks, vals, shuffle_bytes,
+    sync_bytes[, prov])`` (and its ``fold``'s state with them).  One
     collective on a ``DistMesh``, so every rank calls it."""
-    return tuple(mesh.all_gather(x) for x in out)
+    return mesh.all_gather(tuple(out))
 
 
 def default_fold_schedule(num_shards: int, num_batches: int) -> torch.Tensor:
@@ -130,9 +133,10 @@ def default_fold_schedule(num_shards: int, num_batches: int) -> torch.Tensor:
 class KeyedPipeline:
     """The hash-sharded keyed dataplane that :func:`build_keyed_pipeline`
     builds: ``fold`` runs the steps and sync rounds, ``read`` the windows,
-    and a call runs both."""
+    and a call runs both.  Every output holds the mesh's ``L =
+    mesh.local_size`` owner rows (``mesh.partitions``)."""
 
-    mesh: StackMesh
+    mesh: StackMesh | DistMesh
     shards: W.KeyShards
     spec: W.WSpec
     sync_every: int
@@ -141,51 +145,63 @@ class KeyedPipeline:
     provenance: bool
 
     def fold(self, log: EventBatch, sched, wm_sync):
-        """Fold the scheduled batches: ``(state, shuffle_bytes f32[S],
-        sync_bytes f32[S], prov i32[S_dst, S_src])``."""
-        S, dev, shards, mesh = self.shards.num_shards, self.mesh.device, self.shards, self.mesh
+        """Fold the scheduled batches: ``(state, shuffle_bytes f32[L],
+        sync_bytes f32[L], prov i32[L_dst, S_src])``."""
+        S, mesh, shards = self.shards.num_shards, self.mesh, self.shards
+        L, dev, parts = mesh.local_size, mesh.device, mesh.partitions
+        if log.ts.shape[0] != L:
+            raise ValueError(f"log has {log.ts.shape[0]} partition rows, the mesh holds {L}")
+        # the schedule is every partition's: a received lane's batch index
+        # is its source's, never shipped
         sched = torch.as_tensor(sched, dtype=torch.int32).to(dev)
+        mine = sched[parts.start:parts.stop]
         wm_sync = torch.as_tensor(wm_sync, dtype=torch.bool).to(dev)
         B = log.ts.shape[2]
-        rows = torch.arange(S, device=dev)
+        rows = torch.arange(L, device=dev)  # this process's rows of the log
+        owners = torch.arange(parts.start, parts.stop, device=dev)
+        dests = torch.arange(S, device=dev)
         lowest = -(2**31)
-        src = rows.repeat_interleave(B).expand(S, S * B)  # per received lane
-        off_mine = (rows[:, None] != rows[None, :]).unsqueeze(2)  # [S_src, S_dst, 1]
-        ones = torch.ones((S, S * B), dtype=torch.float32, device=dev)
-        state = self.spec.zero(S, dev)
-        shuffle = torch.zeros(S, dtype=torch.float32, device=dev)
-        sync = torch.zeros(S, dtype=torch.float32, device=dev)
-        prov = torch.full((S, S), lowest, dtype=torch.int32, device=dev)
+        src = dests.repeat_interleave(B).expand(L, S * B)  # per received lane
+        off_mine = (owners[:, None] != dests[None, :]).unsqueeze(2)  # [L_src, S_dst, 1]
+        ones = torch.ones((L, S * B), dtype=torch.float32, device=dev)
+        state = self.spec.zero(L, dev)
+        shuffle = torch.zeros(L, dtype=torch.float32, device=dev)
+        sync = torch.zeros(L, dtype=torch.float32, device=dev)
+        prov = torch.full((L, S), lowest, dtype=torch.int32, device=dev)
         for r in range(sched.shape[1] // self.sync_every):
             for t in range(r * self.sync_every, (r + 1) * self.sync_every):
-                col = sched[:, t]
+                col = mine[:, t]
                 ts, kind, auction, valid = (getattr(log, f)[rows, col]
                                             for f in ("ts", "kind", "auction", "valid"))
                 is_bid = valid & (kind == KIND_BID)
                 # routing stack: [s, d, b] = source s's lane b, owned by d
-                m_sb = is_bid.unsqueeze(1) & (shards.shard_of(auction).unsqueeze(1) == rows[:, None])
-                r_ts = mesh.all_to_all(ts.unsqueeze(1).expand(S, S, B))
-                r_loc = mesh.all_to_all(shards.local_of(auction).unsqueeze(1).expand(S, S, B))
-                r_mask = mesh.all_to_all(m_sb)
+                owner = shards.shard_of(auction).unsqueeze(1)
+                m_sb = is_bid.unsqueeze(1) & (owner == dests[:, None])
+                r_ts, r_loc, r_mask = mesh.all_to_all((
+                    ts.unsqueeze(1).expand(L, S, B),
+                    shards.local_of(auction).unsqueeze(1).expand(L, S, B), m_sb))
                 shuffle = shuffle + (m_sb & off_mine).sum((1, 2)).to(torch.float32) * 8.0
                 state = W.insert(
-                    self.spec, state, src, r_ts.reshape(S, S * B), r_mask.reshape(S, S * B),
-                    batch_idx=col.repeat_interleave(B).expand(S, S * B), amounts=ones,
-                    keys=r_loc.reshape(S, S * B),
+                    self.spec, state, src, r_ts.reshape(L, S * B), r_mask.reshape(L, S * B),
+                    batch_idx=sched[:, t].repeat_interleave(B).expand(L, S * B), amounts=ones,
+                    keys=r_loc.reshape(L, S * B),
                 )
                 if self.provenance:
                     prov = torch.maximum(prov, torch.where(r_mask, r_ts, lowest).amax(2))
                 wm = torch.where(valid, ts, lowest).amax(1)  # each source batch's watermark
-                state = W.increment_watermark(self.spec, state, rows, wm)
+                state = W.increment_watermark(self.spec, state, owners, wm)
             on = wm_sync[r]
             state = dataclasses.replace(state, progress=mesh.pmax(state.progress, where=on))
             sync = sync + on.to(torch.float32) * float(S * 4)
         return state, shuffle, sync, prov
 
     def read(self, state: W.WState, key_table: torch.Tensor):
-        """Every shard's hot item of each window: ``(oks f32[S, n], vals
-        f32[S, n, 2])``, ``vals`` holding ``[count, auction_id]``."""
-        key_table = key_table.to(self.mesh.device)
+        """Every owner's hot item of each window: ``(oks f32[L, n], vals
+        f32[L, n, 2])``, ``vals`` holding ``[count, auction_id]``.
+        ``key_table`` is the whole ``shards.key_table()``; each process
+        reads its own rows of it."""
+        parts = self.mesh.partitions
+        key_table = key_table[parts.start:parts.stop].to(self.mesh.device)
         oks, vals = [], []
         for w in range(self.first_window, self.first_window + self.n_windows):
             (cnt, key), ok = W.shard_topk_read(self.spec, state, w, key_table,
@@ -201,7 +217,7 @@ class KeyedPipeline:
 
 
 def build_keyed_pipeline(
-    mesh: StackMesh, shards: W.KeyShards, *, window_len: int = 1000,
+    mesh: StackMesh | DistMesh, shards: W.KeyShards, *, window_len: int = 1000,
     num_slots: int = 16, hop: int | None = None, sync_every: int = 4,
     n_windows: int = 8, first_window: int = 0, provenance: bool = False,
 ) -> KeyedPipeline:
@@ -209,31 +225,33 @@ def build_keyed_pipeline(
     counts over the whole auction-id domain and a cross-shard hot-item read.
 
     The result is called as ``run(log, key_table, sched, wm_sync) -> (oks
-    f32[S, n], vals f32[S, n, 2], shuffle_bytes f32[S], sync_bytes f32[S][,
-    prov i32[S, S]])`` where ``log`` is an EventBatch ``[S, num_batches,
-    B]``, ``key_table`` is ``shards.key_table()``, ``sched`` i32 ``[S,
-    n_steps]`` names the batch each partition folds at each step
-    (:func:`default_fold_schedule`), and ``wm_sync`` bool ``[n_steps //
-    sync_every]`` says whether round ``r``'s watermark exchange runs (False:
-    partitioned, windows stall until it heals).
+    f32[L, n], vals f32[L, n, 2], shuffle_bytes f32[L], sync_bytes f32[L][,
+    prov i32[L, S]])``, the rows of the mesh's own ``L = mesh.local_size``
+    partitions (all ``S`` on a ``StackMesh``, the rank's group on a
+    ``DistMesh``; :func:`gather_outputs` stacks every rank's), where ``log``
+    is an EventBatch ``[L, num_batches, B]`` (``generate_log(...,
+    partitions=mesh.partitions)``), ``key_table`` is the whole
+    ``shards.key_table()``, ``sched`` i32 ``[S, n_steps]`` names the batch
+    every partition folds at each step (:func:`default_fold_schedule`), and
+    ``wm_sync`` bool ``[n_steps // sync_every]`` says whether round ``r``'s
+    watermark exchange runs (False: partitioned, windows stall until it
+    heals).  ``sched`` and ``wm_sync`` are the same on every rank.
 
     Partition ``s`` owns the keys with ``shards.shard_of(k) == s``.  Each
     step every partition routes its bids to their owners
-    (``mesh.all_to_all`` of the ``[S_src, S_dst, B]`` routing stack), and
-    each owner folds the lanes it received as their source partition, at
-    the source's scheduled batch index, into its ``[W, ceil(C/S)]`` range.
-    Ownership is exclusive, so a sync round ships only the ``[S]`` progress
-    map (``mesh.pmax``).  ``shuffle_bytes`` charges 8 bytes (ts, local) per
-    lane sent off its partition; ``sync_bytes`` ``S * 4`` per round with the
-    exchange on.  With ``provenance`` a fifth output gives each owner's
-    ingest frontier per source: the largest ts among the lanes the source
-    routed to it (``-2**31`` where it routed none).  Reads are
-    :func:`W.shard_topk_read` with k=1.
+    (``mesh.all_to_all`` of the ``[S_src, S_dst, B]`` routing stack, its
+    ts, local ids and mask in one collective), and each owner folds the
+    lanes it received as their source partition, at the source's scheduled
+    batch index, into its ``[W, ceil(C/S)]`` range.  Ownership is
+    exclusive, so a sync round ships only the ``[S]`` progress map
+    (``mesh.pmax``, gated by the round's ``wm_sync`` on the device).
+    ``shuffle_bytes`` charges 8 bytes (ts, local) per lane sent off its
+    partition; ``sync_bytes`` ``S * 4`` per round with the exchange on.
+    With ``provenance`` a fifth output gives each owner's ingest frontier
+    per source: the largest ts among the lanes the source routed to it
+    (``-2**31`` where it routed none).  Reads are :func:`W.shard_topk_read`
+    with k=1.
     """
-    if isinstance(mesh, DistMesh):
-        raise NotImplementedError(
-            "the keyed dataplane runs on a StackMesh: its exchange across processes "
-            "(all_to_all, the gated pmax) is not ported yet")
     if mesh.size != shards.num_shards:
         raise ValueError(f"{shards.num_shards} shards, mesh {mesh.size}")
     assigner = as_assigner(window_len, hop if hop else window_len // 2)

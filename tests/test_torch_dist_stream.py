@@ -8,19 +8,19 @@ the log; ``oks``, ``vals`` and ``sync_bytes``, gathered to rank 0, must
 match JAX bitwise (q4's float sums included: both folds add lane by lane
 into the running sum).  2 ranks of 2 partitions must equal the stacked
 run (``StackMesh``) at S = 4 bitwise.  Also here: the mesh's collectives
-against ``StackMesh``'s, a rank's rows of the log against the whole log,
-what ``make_dist_mesh`` and ``build_keyed_pipeline`` refuse, and the CLI
-under ``torchrun``.
+(``all_gather``, ``replicate``, ``all_to_all``, the gated ``pmax``) and
+``shard_topk_read`` against ``StackMesh``'s, a rank's rows of the log
+against the whole log, what ``make_dist_mesh`` refuses, and the CLI under
+``torchrun``.  The keyed dataplane across processes is
+``tests/test_torch_dist_keyed.py``.
 
 Ranks meet through a ``FileStore`` under the test's temporary directory.
 Every subprocess is joined with a timeout and killed when it or a peer
 fails.
 """
 import dataclasses
-import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -28,12 +28,11 @@ import pytest
 import torch
 
 from repro_torch.convert import event_batch_from_numpy
-from repro_torch.core import wcrdt as W
 from repro_torch.launch import mesh as M
 from repro_torch.launch import stream
 from repro_torch.streaming import generator
+from _ranks import env, join_all, start_ranks
 
-SRC = Path(__file__).resolve().parents[1] / "src"
 FIELDS = [f.name for f in dataclasses.fields(generator.EventBatch)]
 NB, B, WIN, SLOTS = 8, 64, 10, 16  # tests/test_torch_stream.py's
 S = 4
@@ -68,12 +67,12 @@ print("JAX_PIPELINE_OK")
 # one rank: every pipeline over a DistMesh, then the mesh's collectives on
 # stacked states; rank 0 writes what it gathered
 _RANK_SCRIPT = """
-import sys
+import contextlib, dataclasses, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch.core import crdt, wcrdt as W
 from repro_torch.core.lattice import map_tensors
 from repro_torch.launch import stream
-from repro_torch.launch.mesh import make_dist_mesh
+from repro_torch.launch.mesh import make_data_mesh, make_dist_mesh
 from repro_torch.streaming.generator import NexmarkConfig, generate_log
 
 rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -122,7 +121,64 @@ for k, w in enumerate(windows):
     res.update(flat(f"replicate{{k}}", mesh.all_gather(rep)))
 res["gather_plain_i64"] = mesh.all_gather(
     torch.arange(mesh.local_size * 6, dtype=torch.int64).reshape(-1, 6) + 2**40 * rank).numpy()
-res["sent_bytes"] = np.array([mesh.stats.sent_bytes])
+
+# all_to_all of mixed dtypes in one call: rank r holds source rows r*L ..
+# of whole [S_src, S_dst, ...] tensors
+a2a = (ints(-9, 9, S, S, 3), torch.randn(S, S, generator=g),
+       torch.randint(0, 2**40, (S, S, 2), generator=g, dtype=torch.int64),
+       torch.rand(S, S, 5, generator=g) < 0.5,
+       torch.randint(0, 256, (S, S), generator=g, dtype=torch.uint8))
+mesh.stats.reset()
+got = mesh.all_to_all(tuple(x[rows] for x in a2a))
+res["a2a_calls"] = np.array([mesh.stats.exchange.calls, mesh.stats.gather.calls])
+for i, (x, y) in enumerate(zip(a2a, mesh.all_gather(got))):
+    res[f"a2a_whole{{i}}"], res[f"a2a{{i}}"] = x.numpy(), y.numpy()
+
+# the gated pmax: where stays a device value, never read on the host
+@contextlib.contextmanager
+def no_host_reads():
+    names = ("__bool__", "item", "tolist", "__int__", "__float__", "numpy")
+    saved = {{n: getattr(torch.Tensor, n) for n in names}}
+    def refuse(*a, **k):
+        raise AssertionError("a host read inside pmax")
+    for n in names:
+        setattr(torch.Tensor, n, refuse)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+
+prog = ints(-5, 1000, S, S)
+res["pmax_whole"] = prog.numpy()
+for gate in (True, False):
+    with no_host_reads():
+        joined = mesh.pmax(prog[rows], where=torch.tensor(gate))
+    res[f"pmax_{{gate}}"] = mesh.all_gather(joined).numpy()
+
+# shard_topk_read over shards whose windows complete at different times:
+# shard s's watermark is 20 + 10 s, so windows 2-4 are complete on some
+# shards only; ok must be every shard's, not the rank's
+ksh = W.KeyShards(101, S)
+kspec = W.wgcounter_sharded(10, 8, S, ksh)
+kst = dataclasses.replace(
+    kspec.zero(S), slot_wid=torch.arange(8, dtype=torch.int32).expand(S, 8).contiguous(),
+    progress=(20 + 10 * torch.arange(S, dtype=torch.int32))[:, None].expand(S, S).contiguous())
+kst = dataclasses.replace(kst, windows=type(kst.windows)(
+    slots=torch.randint(0, 6, kst.windows.slots.shape, generator=g).to(torch.float32)))
+table = ksh.key_table()
+res["topk_rows_complete"] = np.stack([W.window_value(kspec, kst, w)[1].numpy()
+                                      for w in range(8)])
+stack = make_data_mesh(S, "cpu")
+for k in (1, 3):
+    for w in range(8):
+        mine = W.shard_topk_read(kspec, map_tensors(lambda x: x[rows], kst), w, table[rows],
+                                 101, mesh, k=k)
+        want = W.shard_topk_read(kspec, kst, w, table, 101, stack, k=k)
+        for name, a, b in (("counts", mine[0][0], want[0][0]), ("keys", mine[0][1], want[0][1]),
+                           ("ok", mine[1], want[1])):
+            res[f"topk{{k}}.{{w}}.{{name}}"] = mesh.all_gather(a).numpy()
+            res[f"topk{{k}}.{{w}}.{{name}}.stack"] = b.numpy()
 if rank == 0:
     np.savez(out, **res)
 dist.destroy_process_group()
@@ -130,44 +186,10 @@ print("RANK_OK", rank)
 """.format(S=S, NB=NB, B=B, WIN=WIN, SLOTS=SLOTS)
 
 
-def _env(**extra) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", **extra)
-    env.pop("XLA_FLAGS", None)  # the JAX script sets its own device count
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
-              "MASTER_PORT"):
-        env.pop(k, None)
-    return env
-
-
-def _join_all(procs: list, logs: list, timeout: float) -> None:
-    """Wait for every process; on a failure, or at the timeout, kill the
-    rest and fail with each failed process's output."""
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        codes = [p.poll() for p in procs]
-        if None not in codes or any(c not in (None, 0) for c in codes):
-            break
-        time.sleep(0.05)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
-    assert not bad, "\n".join(f"--- process {i} (exit {procs[i].returncode}) ---\n"
-                              f"{Path(logs[i]).read_text()[-3000:]}" for i in bad)
-
-
 def _run_ranks(tmp: Path, world: int) -> dict:
     out = tmp / "ranks.npz"
-    procs, logs = [], []
-    for r in range(world):
-        logs.append(tmp / f"rank{r}.log")
-        with open(logs[-1], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", _RANK_SCRIPT, str(r), str(world), str(tmp / "store"),
-                 str(out)], stdout=f, stderr=subprocess.STDOUT,
-                env=_env(LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world))))
-    _join_all(procs, logs, TIMEOUT)
+    procs, logs = start_ranks(_RANK_SCRIPT, world, tmp, out)
+    join_all(procs, logs, TIMEOUT)
     return dict(np.load(out))
 
 
@@ -175,7 +197,7 @@ def _run_ranks(tmp: Path, world: int) -> dict:
 def jax_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax") / "pipeline.npz"
     r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(out)],
-                       capture_output=True, text=True, timeout=TIMEOUT, env=_env())
+                       capture_output=True, text=True, timeout=TIMEOUT, env=env())
     assert "JAX_PIPELINE_OK" in r.stdout, f"stdout={r.stdout[-2000:]}\nstderr={r.stderr[-2000:]}"
     return dict(np.load(out))
 
@@ -258,6 +280,47 @@ def test_dist_mesh_collectives_equal_stack_mesh(ranks2, ranks4, world):
     np.testing.assert_array_equal(got["gather_plain_i64"], want)
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_dist_mesh_exchange_and_pmax_equal_stack_mesh(ranks2, ranks4, world):
+    """``all_to_all`` of i32, f32, i64 above 2**32, bool and u8 tensors in one
+    call (one collective, no gather) and ``pmax`` with ``where`` True and
+    False (never read on the host) equal ``StackMesh``'s, byte for byte."""
+    got = ranks2 if world == 2 else ranks4
+    stack = M.make_data_mesh(S, "cpu")
+    np.testing.assert_array_equal(got["a2a_calls"], [1, 0])
+    wholes = [torch.from_numpy(got[f"a2a_whole{i}"]) for i in range(5)]
+    assert {str(x.dtype) for x in wholes} == {"torch.int32", "torch.float32", "torch.int64",
+                                              "torch.bool", "torch.uint8"}
+    for i, want in enumerate(stack.all_to_all(tuple(wholes))):
+        y = got[f"a2a{i}"]
+        assert y.dtype == want.numpy().dtype and y.shape == tuple(want.shape), i
+        np.testing.assert_array_equal(y, want.numpy(), err_msg=f"all_to_all leaf {i}")
+    prog = torch.from_numpy(got["pmax_whole"])
+    for gate in (True, False):
+        want = stack.pmax(prog, where=torch.tensor(gate))
+        np.testing.assert_array_equal(got[f"pmax_{gate}"], want.numpy(), err_msg=str(gate))
+    assert not np.array_equal(got["pmax_True"], got["pmax_False"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_topk_read_ok_is_every_ranks(ranks2, ranks4, world):
+    """A window complete on one rank's shards and not on another's reads as
+    not ok on every rank, as on ``StackMesh`` (JAX's ``min(all_gather(ok))``);
+    ``k`` 1 and 3 give the stacked candidates too."""
+    got = ranks2 if world == 2 else ranks4
+    rows_complete = got["topk_rows_complete"]  # [window, shard]
+    L = S // world
+    per_rank = rows_complete.reshape(8, world, L).all(2)
+    mixed = per_rank.any(1) & ~per_rank.all(1)
+    assert mixed.sum() >= 2, rows_complete  # some rank alone would say ok
+    for k in (1, 3):
+        for w in range(8):
+            for name in ("counts", "keys", "ok"):
+                key = f"topk{k}.{w}.{name}"
+                np.testing.assert_array_equal(got[key], got[key + ".stack"], err_msg=key)
+            assert bool(got[f"topk{k}.{w}.ok"].all()) == bool(rows_complete[w].all())
+
+
 @pytest.mark.parametrize("kw", [{"skew": 0.0}, {"skew": 1.2}, {"key_skew": 1.1}],
                          ids=["skew0", "skew1.2", "key_skew1.1"])
 def test_generate_log_partition_rows_equal_the_whole_log(kw):
@@ -297,13 +360,6 @@ def test_make_dist_mesh_refuses_what_it_cannot_meet():
             M.make_dist_mesh(6, "cpu", "gloo")
 
 
-def test_keyed_pipeline_refuses_a_dist_mesh():
-    mesh = M.DistMesh(4, 0, 2, torch.device("cpu"), "gloo")
-    assert (mesh.local_size, mesh.partitions) == (2, range(0, 2))
-    with pytest.raises(NotImplementedError, match="StackMesh"):
-        stream.build_keyed_pipeline(mesh, W.KeyShards(1000, 4))
-
-
 def test_stack_mesh_is_the_world_of_one_rank():
     mesh = M.make_data_mesh(S, "cpu")
     assert (mesh.local_size, mesh.partitions) == (S, range(S))
@@ -331,8 +387,8 @@ def test_torchrun_drives_the_cli_on_two_ranks(tmp_path, capsys):
         p = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "2", "-m", "repro_torch.launch.stream", *args,
-             "--backend", "gloo"], stdout=f, stderr=subprocess.STDOUT, env=_env(), cwd=tmp_path)
-    _join_all([p], [log], TIMEOUT)
+             "--backend", "gloo"], stdout=f, stderr=subprocess.STDOUT, env=env(), cwd=tmp_path)
+    join_all([p], [log], TIMEOUT)
     got = [ln for ln in log.read_text().splitlines() if ln.startswith("partitions=")]
     assert len(got) == 1, log.read_text()[-3000:]
     assert got[0].endswith(" ranks=2 backend=gloo")

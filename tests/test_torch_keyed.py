@@ -1,8 +1,9 @@
 """The port's hash-sharded keyed dataplane against the JAX package.
 
 The JAX ``build_keyed_pipeline`` does not run on this jax (its
-``compat.pvary`` of the key table raises), so the reference here steps its
-``node_fn`` on the host with the JAX parts that do run: ``KeyShards``,
+``compat.pvary`` of the key table raises), so the reference
+(``tests/_keyed_reference.py``) steps its ``node_fn`` on the host with the
+JAX parts that do run: ``KeyShards``,
 ``W.insert`` with a per-lane partition and batch index,
 ``W.increment_watermark``, the progress max of a sync round, and
 ``W.shard_topk_read`` under ``jax.vmap(axis_name="data")``.  The JAX
@@ -10,7 +11,6 @@ generator's zipf log reaches the port as numpy (``repro_torch.convert``).
 States, outputs and byte counters match bitwise, and every complete window
 equals the JAX ``q5_hot_oracle``.
 """
-import dataclasses
 import os
 import subprocess
 import sys
@@ -24,7 +24,6 @@ import torch
 
 from repro.core import wcrdt as JW
 from repro.core import window as jwin
-from repro.streaming import events as jev
 from repro.streaming import generator as jgen
 from repro.streaming import queries as jq
 from repro_torch.convert import (
@@ -36,16 +35,9 @@ from repro_torch.launch import stream
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.streaming import generator
 from repro_torch.streaming.queries import q5_hot_oracle
-
-FIELDS = [f.name for f in dataclasses.fields(jev.EventBatch)]
-C, NB, EPB, WL, SLOTS = 10_000, 8, 256, 100, 16
-
-
-def _jax_state_np(st) -> dict:
-    d = {k: np.asarray(getattr(st, k)) for k in ("slot_wid", "progress", "folded", "errors")}
-    d.update({f"windows.{f.name}": np.asarray(getattr(st.windows, f.name))
-              for f in dataclasses.fields(st.windows)})
-    return d
+from _keyed_reference import (
+    C, FIELDS, NB, SLOTS, WL, jax_log, jax_reference, jax_state_np, read_range,
+)
 
 
 def _assert_rows_equal(port: dict, jax_rows: list[dict]):
@@ -80,7 +72,7 @@ def test_insert_with_per_lane_partition_matches_jax(C_):
     jsh, psh = JW.KeyShards(C_, R), W.KeyShards(C_, R)
     jspec = JW.wgcounter_sharded(20, 8, P, jsh, assigner=jwin.Hopping(20, 10))
     pspec = W.wgcounter_sharded(20, 8, P, psh, assigner=window.Hopping(20, 10))
-    start = dict(_jax_state_np(jspec.zero()), progress=np.array([-45, 5, 30], np.int32),
+    start = dict(jax_state_np(jspec.zero()), progress=np.array([-45, 5, 30], np.int32),
                  folded=np.array([1, 0, 2], np.int32))
     jst = [JW.WState(**{k: jnp.asarray(v) for k, v in start.items() if "." not in k},
                      windows=jspec.zero_windows()) for _ in range(R)]
@@ -99,7 +91,7 @@ def test_insert_with_per_lane_partition_matches_jax(C_):
         T = torch.from_numpy
         pst = W.insert(pspec, pst, T(part), T(ts), T(mask), batch_idx=T(bidx),
                        amounts=T(amounts), keys=T(keys))
-        _assert_rows_equal(wstate_to_numpy(pst), [_jax_state_np(j) for j in jst])
+        _assert_rows_equal(wstate_to_numpy(pst), [jax_state_np(j) for j in jst])
     assert int(pst.errors[:, W.ERR_LATE].sum()) > 0
 
 
@@ -112,7 +104,7 @@ def test_shard_topk_read_matches_jax(k):
     jsh = JW.KeyShards(C_, S)
     jspec = JW.wgcounter_sharded(10, Wn, S, jsh)
     pspec = W.wgcounter_sharded(10, Wn, S, W.KeyShards(C_, S))
-    st = {k_: np.stack([v] * S) for k_, v in _jax_state_np(jspec.zero()).items()}
+    st = {k_: np.stack([v] * S) for k_, v in jax_state_np(jspec.zero()).items()}
     st["slot_wid"][:] = np.arange(Wn)
     st["slot_wid"][2, 3] = 11  # window 3 evicted on shard 2
     st["progress"][:] = 200
@@ -135,74 +127,10 @@ def test_shard_topk_read_matches_jax(k):
         assert bool(pok[0]) == (wid != 3)
 
 
-def _jax_log(S, nb=NB, epb=EPB, num_auctions=C, seed=0):
-    cfg = jgen.NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=epb,
-                             num_auctions=num_auctions, key_skew=1.1, seed=seed)
-    jlog = jgen.generate_log(cfg)
-    arrays = {k: np.asarray(getattr(jlog, k)) for k in FIELDS}
-    return cfg, jlog, arrays, event_batch_from_numpy(arrays)
-
-
-def _windows(cfg, nb):
-    a = jwin.as_assigner(WL, WL // 2)
-    closed = int(a.first_dirty_wid(nb * cfg.batch_span_ms))
-    n = min(closed, 4)
-    return a, max(0, closed - n), n
-
-
-def _jax_reference(arrays, S, sched, wm_sync, sync_every, first, n):
-    """The JAX ``node_fn`` of ``build_keyed_pipeline``, stepped on the host
-    for every device: ``(states, oks, vals, shuffle, sync, prov)``."""
-    jsh = JW.KeyShards(C, S)
-    spec = JW.wgcounter_sharded(WL, SLOTS, S, jsh, assigner=jwin.as_assigner(WL, WL // 2))
-    ins = jax.jit(lambda st, p, ts, m, bi, loc: JW.insert(
-        spec, st, p, ts, m, batch_idx=bi, amounts=jnp.ones(ts.shape, jnp.float32), keys=loc))
-    inc = jax.jit(lambda st, me, wm: JW.increment_watermark(spec, st, me, wm))
-    states = [spec.zero() for _ in range(S)]
-    shuffle = np.zeros(S, np.float32)
-    sync = np.zeros(S, np.float32)
-    prov = np.full((S, S), -(2**31), np.int64)
-    B = arrays["ts"].shape[2]
-    src = np.repeat(np.arange(S, dtype=np.int32), B)
-    for r in range(sched.shape[1] // sync_every):
-        for t in range(r * sync_every, (r + 1) * sync_every):
-            bt = {f: arrays[f][np.arange(S), sched[:, t]] for f in FIELDS}
-            bid = bt["valid"] & (bt["kind"] == jev.KIND_BID)
-            owner = np.asarray(jsh.shard_of(jnp.asarray(bt["auction"])))
-            local = np.asarray(jsh.local_of(jnp.asarray(bt["auction"])))
-            bi = np.repeat(sched[:, t], B).astype(np.int32)
-            for me in range(S):
-                m = bid & (owner == me)  # [S_src, B]: the lanes routed to me
-                states[me] = ins(states[me], jnp.asarray(src), jnp.asarray(bt["ts"].reshape(-1)),
-                                 jnp.asarray(m.reshape(-1)), jnp.asarray(bi),
-                                 jnp.asarray(local.reshape(-1)))
-                sent = int((bid[me] & (owner[me] != me)).sum())
-                shuffle[me] = shuffle[me] + np.float32(sent) * np.float32(8.0)
-                for s in range(S):
-                    if m[s].any():
-                        prov[me, s] = max(prov[me, s], int(bt["ts"][s][m[s]].max()))
-                wm = int(jgen.batch_watermark(jev.EventBatch(*(jnp.asarray(bt[f][me]) for f in FIELDS))))
-                states[me] = inc(states[me], me, wm)
-        if wm_sync[r]:
-            pm = np.max([np.asarray(st.progress) for st in states], 0)
-            states = [dataclasses.replace(st, progress=jnp.asarray(pm)) for st in states]
-            sync = sync + np.float32(S * 4)
-    stacked = jax.tree.map(lambda *x: jnp.stack(x), *states)
-    table = jnp.asarray(jsh.key_table())
-    oks, vals = [], []
-    for w in range(first, first + n):
-        read = jax.vmap(lambda st, row: JW.shard_topk_read(spec, st, w, row, C, "data", k=1),
-                        axis_name="data")
-        (cnt, key), ok = read(stacked, table)
-        oks.append(np.asarray(ok).astype(np.float32))
-        vals.append(np.stack([np.asarray(cnt[:, 0]), np.asarray(key[:, 0]).astype(np.float32)], -1))
-    return states, np.stack(oks, 1), np.stack(vals, 1), shuffle, sync, prov
-
-
 @pytest.mark.parametrize("S", [2, 4])
 def test_keyed_pipeline_matches_jax_reference_and_oracle(S):
-    cfg, jlog, arrays, plog = _jax_log(S)
-    assigner, first, n = _windows(cfg, NB)
+    cfg, jlog, arrays, plog = jax_log(S)
+    assigner, first, n = read_range(cfg, NB)
     sched = stream.default_fold_schedule(S, NB)
     wm = torch.ones(NB // 4, dtype=torch.bool)
     pipe = stream.build_keyed_pipeline(make_data_mesh(S, "cpu"), W.KeyShards(C, S),
@@ -211,8 +139,8 @@ def test_keyed_pipeline_matches_jax_reference_and_oracle(S):
     table = key_table_from_numpy(JW.KeyShards(C, S).key_table())
     state, shuffle, sync, prov = pipe.fold(plog, sched, wm)
     oks, vals = pipe.read(state, table)
-    want = _jax_reference(arrays, S, sched.numpy(), wm.numpy(), 4, first, n)
-    _assert_rows_equal(wstate_to_numpy(state), [_jax_state_np(st) for st in want[0]])
+    want = jax_reference(arrays, S, sched.numpy(), wm.numpy(), 4, first, n)
+    _assert_rows_equal(wstate_to_numpy(state), [jax_state_np(st) for st in want[0]])
     for got, w, name in zip((oks, vals, shuffle, sync, prov), want[1:],
                             ("oks", "vals", "shuffle", "sync", "prov")):
         np.testing.assert_array_equal(got.numpy(), w, err_msg=name)
@@ -239,8 +167,8 @@ def test_keyed_pipeline_crash_replay_and_partition():
     clean run (and to the oracle); a plane never healed stalls every
     window instead of emitting a wrong value."""
     S, nb = 4, 12
-    cfg, jlog, _, plog = _jax_log(S, nb=nb)
-    assigner, first, n = _windows(cfg, nb)
+    cfg, jlog, _, plog = jax_log(S, nb=nb)
+    assigner, first, n = read_range(cfg, nb)
     shards = W.KeyShards(C, S)
     table = shards.key_table()
 
