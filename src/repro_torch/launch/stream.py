@@ -34,7 +34,7 @@ from repro_torch.core import wcrdt as W
 from repro_torch.core.lattice import as_dtype
 from repro_torch.core.window import as_assigner
 from repro_torch.launch.mesh import DistMesh, StackMesh, make_data_mesh, make_dist_mesh
-from repro_torch.obs.timing import WallTimer
+from repro_torch.obs.timing import WallTimer, span
 from repro_torch.streaming.events import KIND_BID, EventBatch
 from repro_torch.streaming.generator import NexmarkConfig, generate_log
 from repro_torch.streaming.queries import (
@@ -69,7 +69,9 @@ def build_pipeline(
     background-sync round (trailing batches that do not fill a round are not
     folded, as in the JAX package); finally reads window ids
     ``first_window .. first_window + n_windows - 1``.  ``sync_bytes`` is
-    each replica's total modeled sync traffic.
+    each replica's total modeled sync traffic.  Under an open
+    ``obs.timing.recording()`` it records the spans ``holon.pass``,
+    ``holon.fold.step`` (a batch), ``holon.sync.round`` and ``holon.read``.
     """
     S, L, dev, parts = mesh.size, mesh.local_size, mesh.device, mesh.partitions
     if query.num_partitions != S:
@@ -78,6 +80,10 @@ def build_pipeline(
     def run(log: EventBatch):
         if log.ts.shape[0] != L:
             raise ValueError(f"log has {log.ts.shape[0]} partition rows, the mesh holds {L}")
+        with span("holon.pass"):
+            return fold_and_read(log)
+
+    def fold_and_read(log: EventBatch):
         part = torch.arange(parts.start, parts.stop, device=dev)
         shared = query.init_shared(dev, L)
         local = query.init_local(dev, L)
@@ -87,26 +93,30 @@ def build_pipeline(
         idx = 0
         for _ in range(n_rounds):
             for _ in range(sync_every):
-                shared, local = query.fold(shared, local, log.batch(idx), part, batch_idx=idx)
+                with span("holon.fold.step"):
+                    shared, local = query.fold(shared, local, log.batch(idx), part,
+                                               batch_idx=idx)
                 idx += 1
-            synced = []
-            for spec, st, (bf, bp) in zip(query.shared_specs, shared, baselines):
-                if delta_sync:
-                    st, shipped = W.delta_axis_join(spec, st, bf, bp, mesh)
-                else:
-                    st = W.axis_join(spec, st, mesh)
-                    shipped = W.state_nbytes(st)
-                sync_bytes = sync_bytes + shipped
-                synced.append(st)
-            shared = tuple(synced)
-            baselines = [W.baseline_of(st) for st in shared]
+            with span("holon.sync.round"):
+                synced = []
+                for spec, st, (bf, bp) in zip(query.shared_specs, shared, baselines):
+                    if delta_sync:
+                        st, shipped = W.delta_axis_join(spec, st, bf, bp, mesh)
+                    else:
+                        st = W.axis_join(spec, st, mesh)
+                        shipped = W.state_nbytes(st)
+                    sync_bytes = sync_bytes + shipped
+                    synced.append(st)
+                shared = tuple(synced)
+                baselines = [W.baseline_of(st) for st in shared]
 
-        oks, vals = [], []
-        for w in range(first_window, first_window + n_windows):
-            v, ok = query.read(shared, local, w)
-            oks.append(ok.to(torch.float32))
-            vals.append(as_dtype(v, torch.float32))
-        return torch.stack(oks, 1), torch.stack(vals, 1), sync_bytes
+        with span("holon.read"):
+            oks, vals = [], []
+            for w in range(first_window, first_window + n_windows):
+                v, ok = query.read(shared, local, w)
+                oks.append(ok.to(torch.float32))
+                vals.append(as_dtype(v, torch.float32))
+            return torch.stack(oks, 1), torch.stack(vals, 1), sync_bytes
 
     return run
 
@@ -117,7 +127,8 @@ def gather_outputs(mesh: StackMesh | DistMesh, out: tuple) -> tuple:
     vals, sync_bytes)``, or a keyed pipeline's ``(oks, vals, shuffle_bytes,
     sync_bytes[, prov])`` (and its ``fold``'s state with them).  One
     collective on a ``DistMesh``, so every rank calls it."""
-    return mesh.all_gather(tuple(out))
+    with span("holon.gather_outputs"):
+        return mesh.all_gather(tuple(out))
 
 
 def default_fold_schedule(num_shards: int, num_batches: int) -> torch.Tensor:
@@ -134,7 +145,10 @@ class KeyedPipeline:
     """The hash-sharded keyed dataplane that :func:`build_keyed_pipeline`
     builds: ``fold`` runs the steps and sync rounds, ``read`` the windows,
     and a call runs both.  Every output holds the mesh's ``L =
-    mesh.local_size`` owner rows (``mesh.partitions``)."""
+    mesh.local_size`` owner rows (``mesh.partitions``).  Under an open
+    ``obs.timing.recording()`` a call records ``holon.pass``, ``fold`` a
+    ``holon.fold.step`` a step with its ``holon.fold.route`` inside and a
+    ``holon.sync.round`` a round, ``read`` a ``holon.read``."""
 
     mesh: StackMesh | DistMesh
     shards: W.KeyShards
@@ -170,29 +184,33 @@ class KeyedPipeline:
         prov = torch.full((L, S), lowest, dtype=torch.int32, device=dev)
         for r in range(sched.shape[1] // self.sync_every):
             for t in range(r * self.sync_every, (r + 1) * self.sync_every):
-                col = mine[:, t]
-                ts, kind, auction, valid = (getattr(log, f)[rows, col]
-                                            for f in ("ts", "kind", "auction", "valid"))
-                is_bid = valid & (kind == KIND_BID)
-                # routing stack: [s, d, b] = source s's lane b, owned by d
-                owner = shards.shard_of(auction).unsqueeze(1)
-                m_sb = is_bid.unsqueeze(1) & (owner == dests[:, None])
-                r_ts, r_loc, r_mask = mesh.all_to_all((
-                    ts.unsqueeze(1).expand(L, S, B),
-                    shards.local_of(auction).unsqueeze(1).expand(L, S, B), m_sb))
-                shuffle = shuffle + (m_sb & off_mine).sum((1, 2)).to(torch.float32) * 8.0
-                state = W.insert(
-                    self.spec, state, src, r_ts.reshape(L, S * B), r_mask.reshape(L, S * B),
-                    batch_idx=sched[:, t].repeat_interleave(B).expand(L, S * B), amounts=ones,
-                    keys=r_loc.reshape(L, S * B),
-                )
-                if self.provenance:
-                    prov = torch.maximum(prov, torch.where(r_mask, r_ts, lowest).amax(2))
-                wm = torch.where(valid, ts, lowest).amax(1)  # each source batch's watermark
-                state = W.increment_watermark(self.spec, state, owners, wm)
-            on = wm_sync[r]
-            state = dataclasses.replace(state, progress=mesh.pmax(state.progress, where=on))
-            sync = sync + on.to(torch.float32) * float(S * 4)
+                with span("holon.fold.step"):
+                    col = mine[:, t]
+                    ts, kind, auction, valid = (getattr(log, f)[rows, col]
+                                                for f in ("ts", "kind", "auction", "valid"))
+                    is_bid = valid & (kind == KIND_BID)
+                    with span("holon.fold.route"):
+                        # routing stack: [s, d, b] = source s's lane b, owned by d
+                        owner = shards.shard_of(auction).unsqueeze(1)
+                        m_sb = is_bid.unsqueeze(1) & (owner == dests[:, None])
+                        r_ts, r_loc, r_mask = mesh.all_to_all((
+                            ts.unsqueeze(1).expand(L, S, B),
+                            shards.local_of(auction).unsqueeze(1).expand(L, S, B), m_sb))
+                    shuffle = shuffle + (m_sb & off_mine).sum((1, 2)).to(torch.float32) * 8.0
+                    state = W.insert(
+                        self.spec, state, src, r_ts.reshape(L, S * B),
+                        r_mask.reshape(L, S * B),
+                        batch_idx=sched[:, t].repeat_interleave(B).expand(L, S * B),
+                        amounts=ones, keys=r_loc.reshape(L, S * B),
+                    )
+                    if self.provenance:
+                        prov = torch.maximum(prov, torch.where(r_mask, r_ts, lowest).amax(2))
+                    wm = torch.where(valid, ts, lowest).amax(1)  # each source batch's watermark
+                    state = W.increment_watermark(self.spec, state, owners, wm)
+            with span("holon.sync.round"):
+                on = wm_sync[r]
+                state = dataclasses.replace(state, progress=mesh.pmax(state.progress, where=on))
+                sync = sync + on.to(torch.float32) * float(S * 4)
         return state, shuffle, sync, prov
 
     def read(self, state: W.WState, key_table: torch.Tensor):
@@ -201,19 +219,21 @@ class KeyedPipeline:
         ``key_table`` is the whole ``shards.key_table()``; each process
         reads its own rows of it."""
         parts = self.mesh.partitions
-        key_table = key_table[parts.start:parts.stop].to(self.mesh.device)
-        oks, vals = [], []
-        for w in range(self.first_window, self.first_window + self.n_windows):
-            (cnt, key), ok = W.shard_topk_read(self.spec, state, w, key_table,
-                                               self.shards.num_keys, self.mesh, k=1)
-            oks.append(ok.to(torch.float32))
-            vals.append(torch.stack([cnt[:, 0], key[:, 0].to(torch.float32)], -1))
-        return torch.stack(oks, 1), torch.stack(vals, 1)
+        with span("holon.read"):
+            key_table = key_table[parts.start:parts.stop].to(self.mesh.device)
+            oks, vals = [], []
+            for w in range(self.first_window, self.first_window + self.n_windows):
+                (cnt, key), ok = W.shard_topk_read(self.spec, state, w, key_table,
+                                                   self.shards.num_keys, self.mesh, k=1)
+                oks.append(ok.to(torch.float32))
+                vals.append(torch.stack([cnt[:, 0], key[:, 0].to(torch.float32)], -1))
+            return torch.stack(oks, 1), torch.stack(vals, 1)
 
     def __call__(self, log: EventBatch, key_table, sched, wm_sync):
-        state, shuffle, sync, prov = self.fold(log, sched, wm_sync)
-        out = (*self.read(state, key_table), shuffle, sync)
-        return out + (prov,) if self.provenance else out
+        with span("holon.pass"):
+            state, shuffle, sync, prov = self.fold(log, sched, wm_sync)
+            out = (*self.read(state, key_table), shuffle, sync)
+            return out + (prov,) if self.provenance else out
 
 
 def build_keyed_pipeline(
