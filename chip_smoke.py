@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. The device: name, count, and ``nvidia-smi``'s name and power limit.
-2. Build the six CUDA sources under ``src/repro_torch/csrc`` with
+2. Build the seven CUDA sources under ``src/repro_torch/csrc`` with
    ``nvcc``, one process per source, all at once, beside a probe of one
    thread's add chain and an empty kernel (the launch floor).
 3. Build a small log with the port's threefry generator on the card and
@@ -38,8 +38,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gathered stack).  The counters' reads
    (``actor_sum``, the left fold over actor rows) are held bitwise against
    the plain version on the card and the CPU, each run's first read timed
-   beside ``torch.sum(dim=1)``.  An empty kernel, timed by the same loop,
-   gives the launch floor beside the launch-bound rows.
+   beside ``torch.sum(dim=1)``.  The dense fold step's ring bookkeeping
+   (``ring_insert``, one launch a counter spec a step on the states
+   ``build_pipeline`` owns) is held on every dense query's last recorded
+   step (dense q5 at 10,000 auctions advances a slot there), at a rank's
+   rows and at ragged edges: every output, and every window leaf it resets
+   in place, bitwise its plain version on the card and on the CPU, and a
+   second launch; each run's first call timed.  An empty kernel, timed
+   by the same loop, gives the launch floor beside the launch-bound rows.
 4. Run the dataplane (``build_pipeline``) for every query at a full Nexmark
    deployment: 16 partitions at 625,000 events/s each (nexmark-flink's
    default 10 M events/s in all), 16,384 events per batch, 10 s windows
@@ -48,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    complete window against the port's own query oracle, delta sync against
    full sync (q4), and a second q4 run against the first, byte for byte;
    every kernel must have been launched by the queries that use it (a
-   dense delta run launches the fused merge once a spec a round and no
+   dense run of a counter query launches ``ring_insert`` once a spec a
+   step; a dense delta run launches the fused merge once a spec a round and no
    standalone join; ``crdt_merge`` is launched by the keyed runs alone,
    once an exchange).  Then
    the hash-sharded keyed dataplane (``build_keyed_pipeline``) on the same
@@ -691,7 +698,7 @@ def main_path_calls(dev) -> dict:
     mesh = make_data_mesh(S, dev)
     per = {"window_agg": nb, "topk_window": nb, "gated_delta_merge": nb // SYNC_EVERY,
            "segment_reduce": nb, "crdt_merge": nb // SYNC_EVERY,
-           "delta_merge_join": nb // SYNC_EVERY, "actor_sum": 1}
+           "delta_merge_join": nb // SYNC_EVERY, "actor_sum": 1, "ring_insert": nb}
 
     def last(calls):
         return {k: c[len(c) - len(c) // per[k]:] for k, c in calls.items()}
@@ -1236,6 +1243,110 @@ def check_actor_sum(dev, calls: dict) -> dict:
     return dict(q4, max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+def _ring_args(args, where, plain: bool) -> list:
+    """A recorded ``ring_insert`` call's arguments on ``where``, the leaves
+    it resets copied; for the plain version (``plain``) an int partition or
+    batch index as the i64 ``[S]`` it takes."""
+    out = [[x_.to(where, copy=True) for x_ in x] if isinstance(x, list) and torch.is_tensor(x[0])
+           else x.to(where) if torch.is_tensor(x) else x for x in args]
+    for i in (2, 3):
+        if plain and out[i] is not None and not torch.is_tensor(out[i]):
+            out[i] = torch.full((out[0].shape[0],), int(out[i]), dtype=torch.int64, device=where)
+    return out
+
+
+def ring_insert_row(dev, name: str, args, timed: bool) -> dict:
+    """Hold the ring bookkeeping against its plain version on one call:
+    every output and every leaf it resets in place, bitwise, on the card and
+    on the CPU (integers and copied fills: no float is computed), and a
+    second launch against the first; if ``timed``, time the kernel, its
+    plain version on the card and the host's cost of one dispatcher call."""
+    from repro_torch.kernels import ops, ref, ring_insert
+
+    outs = ("slot", "valid", "slot_wid", "folded", "errors")
+    mine, theirs, cpu = (_ring_args(args, dev, False), _ring_args(args, dev, True),
+                         _ring_args(args, "cpu", True))
+    got = ops.ring_insert(*mine)
+    want, want_cpu = ref.ring_insert_ref(*theirs), ref.ring_insert_ref(*cpu)
+    for nm, g, w, c in zip(outs, got, want, want_cpu):
+        assert_equal(f"{name} {nm}", g, w)
+        assert_equal(f"{name} {nm} (CPU plain version)", g.cpu(), c)
+    for g, w, c in zip(mine[8], theirs[8], cpu[8]):
+        assert_equal(f"{name} leaf", g, w)
+        assert_equal(f"{name} leaf (CPU plain version)", g.cpu(), c)
+    again = _ring_args(args, dev, False)
+    for nm, g, w in zip(outs, ops.ring_insert(*again), got):
+        assert_equal(f"{name} {nm} (second run)", g, w)
+    for g, w in zip(again[8], mine[8]):
+        assert_equal(f"{name} leaf (second run)", g, w)
+    del theirs, cpu, again
+    ts, slot_wid, leaves = args[0], args[4], args[8]
+    S_, B_ = ts.shape
+    adv = got[2] > mine[4]
+    row = {"shape": f"{name} S={S_} B={B_} K={got[0].shape[1] // max(B_, 1)} "
+                    f"W={slot_wid.shape[1]} leaves={[tuple(x.shape) for x in leaves]}",
+           "advancing": int(adv.sum()), "max_abs_err": 0.0}
+    if not timed:
+        return row
+    row.update(kernel_ms(lambda: ops.ring_insert(*mine)))
+    plain = _ring_args(args, dev, True)
+    row["plain_ms"] = cuda_ms(lambda: ref.ring_insert_ref(*plain))
+    row["library_ms"] = None
+    row.update(wrapper_host_us(ring_insert.KERNEL, lambda: ops.ring_insert(*mine)))
+    # the events, ring and maps read; the lanes' slots and flags, the new
+    # maps and each advancing slot's rows written
+    reset = row["advancing"] * sum(x[0, 0].numel() * 4 for x in leaves)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(*(x for x in mine[:8] if torch.is_tensor(x))) + nbytes(*got) + reset, 0)
+    return row
+
+
+def check_ring_insert(dev, calls: dict) -> dict:
+    """The ring bookkeeping of each counter query's last recorded fold step
+    (q0, q1_ratio, q4, q5 and dense q5 at 10,000 auctions, whose last batch
+    advances a slot), that step at the rows of one rank across processes
+    (phase 11's), then ragged edges; each run's first call timed.  Returns
+    dense q5 at 10,000 auctions' timed row (the benchmark's dense cell)."""
+    rows = []
+    for tag in ("q0", "q1_ratio", "q4", "q5", "q5_10k"):
+        for i, (args, kw) in enumerate(calls[tag]["ring_insert"]):
+            rows.append(ring_insert_row(dev, f"ring_insert {tag} step {i}", args, timed=i == 0))
+            rows[-1]["run"] = tag
+            log(json.dumps(rows[-1]))
+    if not any(r["advancing"] for r in rows if r["run"] == "q5_10k"):
+        raise AssertionError("ring_insert: q5_10k's recorded step advanced no slot")
+    L = S // DIST_WORLD
+    args = calls["q5_10k"]["ring_insert"][-1][0]
+    rank = [[x_[L:2 * L] for x_ in x] if isinstance(x, list) and torch.is_tensor(x[0])
+            else x[L:2 * L] if torch.is_tensor(x) and x.dim() and x.shape[0] == S else x
+            for x in args]
+    log(json.dumps(ring_insert_row(dev, f"ring_insert q5_10k, rank 1 of {DIST_WORLD}'s rows",
+                                   rank, timed=False)))
+    # ragged edges: no lanes, one lane, K = 3 over an odd ring, two leaves
+    g = torch.Generator().manual_seed(9)
+    hop, base = 10, 100
+    for S_, B_, K_, W_, P_, rest, n_leaves, fill in (
+            (2, 0, 2, 4, 3, (1, 6), 1, 0.0), (1, 1, 1, 5, 1, (), 1, float("inf")),
+            (3, 2049, 3, 7, 5, (3,), 1, float("-inf")), (5, 4099, 2, 13, 2, (2, 7), 2, 0.0)):
+        wid = base - W_ + torch.randint(0, W_ + 3, (S_, W_), generator=g)
+        wid = wid - (wid - torch.arange(W_)) % W_  # a tenant sits in its own slot
+        wid = torch.where((torch.rand((S_, W_), generator=g) < 0.2) | (wid < 0), -1, wid)
+        args = [(base * hop + torch.randint(-4 * hop, 3 * hop, (S_, B_), generator=g)).int(),
+                torch.rand((S_, B_), generator=g) < 0.8,
+                torch.randint(0, P_, (S_,), generator=g), torch.randint(5, 25, (S_,), generator=g),
+                wid.int(), (base * hop + torch.randint(-6 * hop, hop, (S_, P_), generator=g)).int(),
+                torch.randint(0, 20, (S_, P_), generator=g).int(),
+                torch.randint(0, 9, (S_, 3), generator=g).int(),
+                [torch.randn((S_, W_, *rest), generator=g) * 10 for _ in range(n_leaves)],
+                [fill] * n_leaves, hop, hop * K_]
+        ring_insert_row(dev, f"ring_insert ragged S={S_} B={B_} K={K_} W={W_}",
+                        _ring_args(args, dev, False), timed=False)
+    log("ring_insert: the main path's steps, a rank's rows and ragged edges equal the plain "
+        "version bitwise")
+    q5 = next(r for r in rows if r["run"] == "q5_10k" and "ms" in r)
+    return dict(q5, max_abs_err=0.0)
+
+
 def check_crdt_merge(dev, calls: dict, floor: dict) -> dict:
     from repro_torch.kernels import crdt_merge, ops, ref
     from repro_torch.launch.mesh import make_data_mesh
@@ -1524,15 +1635,20 @@ def check_launches(run: str, used: set) -> dict:
 
 def check_dense_launches(run: str, q, delta: bool, n_rounds: int) -> dict:
     """A dense run's launches (:func:`check_launches`): the query's fold and
-    read kernels and, under delta sync where it shares state, the fused
-    merge, once a spec a round."""
-    used = {"topk_window"} if q.name == "q7" else {"window_agg", "actor_sum"}
+    read kernels, the ring bookkeeping of a counter query once a spec a
+    step, and, under delta sync where it shares state, the fused merge,
+    once a spec a round."""
+    used = {"topk_window"} if q.name == "q7" else {"window_agg", "actor_sum", "ring_insert"}
     if delta and q.name in ("q1_ratio", "q4", "q5"):
         used |= {"delta_merge_join"}
     counts = check_launches(run, used)
     if counts["delta_merge_join"] not in (0, n_rounds * len(q.shared_specs)):
         raise AssertionError(f"{run}: {counts['delta_merge_join']} fused merges, expected "
                              f"one a spec a round")
+    specs = len(q.shared_specs) + (q.local_spec is not None)
+    if counts["ring_insert"] not in (0, n_rounds * SYNC_EVERY * specs):
+        raise AssertionError(f"{run}: {counts['ring_insert']} ring launches, expected one a "
+                             f"spec a step")
     return counts
 
 
@@ -1701,7 +1817,11 @@ def run_keyed(dev, handover: Path) -> tuple[list, dict]:
     q = MAKERS["q5"](S, window_len=WINDOW_MS, num_slots=NUM_SLOTS, num_auctions=DENSE_Q5_KEYS)
     first, n = read_window_range(q, SHORT_BATCHES * qx.batch_span_ms)
     (oks, vals, sb), dt, peak = run_pipeline(q, mesh, qlog, True, first, n)
-    counts = check_launches("q5_10k", {"segment_reduce", "delta_merge_join", "actor_sum"})
+    counts = check_launches("q5_10k", {"segment_reduce", "delta_merge_join", "actor_sum",
+                                       "ring_insert"})
+    if counts["ring_insert"] != SHORT_BATCHES:
+        raise AssertionError(f"q5_10k: {counts['ring_insert']} ring launches, expected one a "
+                             f"step")
     add(counts)
     done = check_against_oracle(q, qlog, oks, vals, first)
     if done < 1:
@@ -1859,6 +1979,8 @@ def runtime_kernel_calls(calls: dict, dev) -> dict:
                     assert_equal(f"runtime delta_merge_join {sig[1:]}", a, b)
             elif kname == "actor_sum":
                 actor_sum_row(dev, f"runtime actor_sum {sig[1:]}", args[0], timed=False)
+            elif kname == "ring_insert":
+                ring_insert_row(dev, f"runtime ring_insert {sig[1:]}", args, timed=False)
             else:
                 raise AssertionError(f"the runtime called {kname}, which it does not use")
         if recorded:
@@ -2139,7 +2261,7 @@ def run_examples(dev, card: str) -> dict:
         log(json.dumps({"example": name, "wall_s": wall, "card": card,
                         "cpu_wall_s": cpu_wall, "lines_equal_cpu": len(lines)}))
     counts = check_launches("examples", {"window_agg", "topk_window", "delta_merge_join",
-                                         "actor_sum"})
+                                         "actor_sum", "ring_insert"})
     log(json.dumps({"examples_launches": counts}))
     for name, calls in recorded.items():
         checked = runtime_kernel_calls(calls, dev)
@@ -3746,6 +3868,7 @@ def run_phases(tmp: Path) -> int:
         "segment_reduce": check_segment_reduce(dev, calls),
         "crdt_merge": check_crdt_merge(dev, calls, floor),
         "actor_sum": check_actor_sum(dev, calls),
+        "ring_insert": check_ring_insert(dev, calls),
     }
     # the Pallas function's counterpart, off the main path since the fused
     # merge took its place: checked and timed, reported with the fused row
@@ -3803,9 +3926,13 @@ def run_phases(tmp: Path) -> int:
         log(f"{r['query']:9s} sync={r['sync']:5s} {r['events_per_s']:.6e} events/s "
             f"sync_bytes_per_round={r['sync_bytes_per_round']:.1f} {card}")
 
-    src = {"window_agg": "window_agg.py:90", "delta_merge_join": "crdt_merge.py:96",
-           "topk_window": "topk_window.py:46", "segment_reduce": "segment_reduce.py:76",
-           "crdt_merge": "crdt_merge.py:35", "actor_sum": None}
+    src = {k: f"src/repro/kernels/{v}" for k, v in (
+        ("window_agg", "window_agg.py:90"), ("delta_merge_join", "crdt_merge.py:96"),
+        ("topk_window", "topk_window.py:46"), ("segment_reduce", "segment_reduce.py:76"),
+        ("crdt_merge", "crdt_merge.py:35"))}
+    src["actor_sum"] = "src/repro/core/crdt.py:63 (jnp.sum over actor rows; no Pallas kernel)"
+    src["ring_insert"] = ("src/repro/core/wcrdt.py:169 (insert's XLA ops around the fold; "
+                          "no Pallas kernel)")
     kernel_rows["delta_merge_join"]["standalone_gated_delta_merge"] = {
         k_: standalone[k_] for k_ in ("shape", "ms", "plain_ms", "bound_ms", "host_us",
                                       "launch_us")}
@@ -3814,8 +3941,7 @@ def run_phases(tmp: Path) -> int:
         kernels.append({
             "name": k, "route": "cuda",
             "source": f"src/repro_torch/csrc/{ops.KERNELS[k].source}.cu",
-            "replaces": (f"src/repro/kernels/{src[k]}" if src[k] else
-                         "src/repro/core/crdt.py:63 (jnp.sum over actor rows; no Pallas kernel)"),
+            "replaces": src[k],
             "launches": launches[k],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

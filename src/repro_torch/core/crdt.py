@@ -38,10 +38,12 @@ def _i32(x: torch.Tensor | None) -> torch.Tensor | None:
     return None if x is None else as_dtype(x, torch.int32).contiguous()
 
 
-def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
+def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum", inplace=False):
     """Fold ``amounts`` into each replica's own actor row of a
     ``[S, W, P, *key]`` counter through the windowed-fold kernel, with that
-    row as the kernel's ``init``.  Returns the new state tensor."""
+    row as the kernel's ``init``.  Returns the new state tensor: a new
+    tensor, or with ``inplace`` (a state the caller owns) ``rows_state``
+    with the folded rows written back."""
     S, W, P = rows_state.shape[:3]
     key_shape = rows_state.shape[3:]
     C = math.prod(key_shape)
@@ -54,7 +56,7 @@ def _actor_fold(rows_state, slot_ids, mask, actor, amounts, keys, op="sum"):
     actor = _per_replica(actor, S, rows_state.device)
     init = rows_state[rows, :, actor].reshape(S, W, C)
     out = ops.window_agg(*args, op=op, keys=_i32(keys), C=C, init=init)
-    new = rows_state.clone()
+    new = rows_state if inplace else rows_state.clone()
     new[rows, :, actor] = out.reshape(S, W, *key_shape)
     return new
 
@@ -70,9 +72,12 @@ class GCounter:
     def zero_windows(cls, W: int, num_actors: int, key_shape=(), device=None):
         return cls(slots=torch.zeros((W, num_actors, *key_shape), device=device))
 
-    def fold_windows(self, slot_ids, mask, actor, amounts, keys=None) -> "GCounter":
-        """Add each replica's non-negative ``amounts`` into its ``actor`` row."""
-        return GCounter(_actor_fold(self.slots, slot_ids, mask, actor, amounts, keys))
+    def fold_windows(self, slot_ids, mask, actor, amounts, keys=None,
+                     inplace=False) -> "GCounter":
+        """Add each replica's non-negative ``amounts`` into its ``actor`` row
+        (with ``inplace``, into ``self``'s tensor: see ``_actor_fold``)."""
+        return GCounter(_actor_fold(self.slots, slot_ids, mask, actor, amounts, keys,
+                                    inplace=inplace))
 
     def window_value(self, slot: int) -> torch.Tensor:
         return ops.actor_sum(self.slots[:, slot])
@@ -91,11 +96,13 @@ class PNCounter:
         z = torch.zeros((W, num_actors, *key_shape), device=device)
         return cls(pos=z, neg=z.clone())
 
-    def fold_windows(self, slot_ids, mask, actor, amounts, keys=None) -> "PNCounter":
+    def fold_windows(self, slot_ids, mask, actor, amounts, keys=None,
+                     inplace=False) -> "PNCounter":
         a = amounts.to(torch.float32)
         return PNCounter(
-            _actor_fold(self.pos, slot_ids, mask, actor, a.clamp(min=0), keys),
-            _actor_fold(self.neg, slot_ids, mask, actor, (-a).clamp(min=0), keys),
+            _actor_fold(self.pos, slot_ids, mask, actor, a.clamp(min=0), keys, inplace=inplace),
+            _actor_fold(self.neg, slot_ids, mask, actor, (-a).clamp(min=0), keys,
+                        inplace=inplace),
         )
 
     def window_value(self, slot: int) -> torch.Tensor:

@@ -88,7 +88,10 @@ class WSpec:
     num_slots: int  # ring size W
     num_partitions: int  # P — progress map size
     zero_windows: Callable[[Any], Any]  # (device) -> CRDT with [W] leading axis
-    fold: Callable[..., Any]  # (windows, slot_ids, mask, **inputs) -> windows
+    # (windows, slot_ids, mask, **inputs) -> windows; a counter's fold also
+    # takes inplace=True (insert(owned=True)): the caller owns windows, so
+    # the fold may write into them, not copy them
+    fold: Callable[..., Any]
     read: Callable[[Any, int], Any]  # (windows, slot) -> per-replica value
     # partition-ordered batches span few windows: when set, insert() finds
     # each batch's lowest window id and the fold visits only this many
@@ -158,7 +161,7 @@ def _lane_index(x, S: int, device) -> torch.Tensor:
 
 def insert(
     spec: WSpec, state: WState, partition, ts: torch.Tensor, mask: torch.Tensor,
-    batch_idx=None, **inputs
+    batch_idx=None, owned: bool = False, **inputs
 ) -> WState:
     """Fold each replica's batch (``ts``, ``mask`` and payload ``inputs``,
     all ``[S, B]``) into its window ring as ``partition``: an int, ``[S]``,
@@ -173,7 +176,21 @@ def insert(
     only if ``batch_idx >= folded[partition]`` (replay idempotence), and
     ``folded[partition]`` rises to ``batch_idx + 1`` for every lane, masked
     or not.
+
+    With ``owned`` the caller owns ``state``: nothing reads it after the
+    call (the dataplane's own running state).  The result is the same.
+    Where the windows are a counter's or a register's (``_OWNED_RING``) and
+    the partition and batch index are one a replica (an int or ``[S]``),
+    the ring bookkeeping is one launch (``ops.ring_insert``) that resets
+    only the advancing slots of the window leaves, in place, and a
+    counter's fold writes each replica's actor row back into the leaf it
+    was given.  ``slot_wid``, ``progress``, ``folded`` and ``errors`` stay
+    new tensors: the sync baselines hold the old ones.
     """
+    if owned:
+        out = _insert_owned(spec, state, partition, ts, mask, batch_idx, inputs)
+        if out is not None:
+            return out
     S = ts.shape[0]
     W = spec.num_slots
     dev = ts.device
@@ -231,6 +248,58 @@ def insert(
     if batch_idx is not None:
         folded = _scatter_max(folded, *torch.broadcast_tensors(part, bidx + 1))
     return WState(new_slot_wid, windows, state.progress, folded, errors)
+
+
+def _replica_index(x, S: int, device):
+    """A per-replica partition or batch index as the ring launch takes it:
+    an int (or None) as it is, a tensor as i64 ``[S]``."""
+    if not isinstance(x, torch.Tensor) or (x.shape == (S,) and x.dtype == torch.int64
+                                           and x.device == torch.device(device)):
+        return x
+    return _per_replica(x, S, device).contiguous()
+
+
+# the window CRDTs whose ring bookkeeping ``insert(owned=True)`` runs as one
+# launch: every cell of each leaf's zero, and the keywords its fold takes
+# there (a counter's fold writes each replica's actor row back into the
+# leaf it owns; a register's writes a new tensor either way)
+_OWNED_RING = {
+    crdts.GCounter: (0.0, {"inplace": True}),
+    crdts.PNCounter: (0.0, {"inplace": True}),
+    crdts.MaxReg: (float("-inf"), {}),
+    crdts.MinReg: (float("inf"), {}),
+}
+
+
+def _insert_owned(spec: WSpec, state: WState, partition, ts, mask, batch_idx,
+                  inputs: dict) -> WState | None:
+    """:func:`insert` on a state its caller owns, with the ring bookkeeping
+    in one launch; None where that does not apply: windows not in
+    ``_OWNED_RING`` (TopK, GSet), an active-window cap, a ring larger than
+    the kernel holds, lanes of their own partitions, leaves that are not
+    contiguous f32 (a broadcast of one row)."""
+    ring = _OWNED_RING.get(type(state.windows))
+    if (ring is None or spec.max_active_windows is not None
+            or spec.num_slots > ops.RING_MAX_SLOTS
+            or any(isinstance(x, torch.Tensor) and x.dim() > 1 for x in (partition, batch_idx))):
+        return None
+    leaves = [getattr(state.windows, n) for n in field_kinds(state.windows)]
+    if not all(l.dtype == torch.float32 and l.is_contiguous() for l in leaves):
+        return None
+    fill, fold_kw = ring
+    S, B = ts.shape
+    dev = ts.device
+    a = spec.assigner
+    slot, valid, slot_wid, folded, errors = ops.ring_insert(
+        as_dtype(ts, torch.int32).contiguous(), mask.contiguous(),
+        _replica_index(partition, S, dev), _replica_index(batch_idx, S, dev),
+        state.slot_wid, state.progress, state.folded, state.errors,
+        leaves, [fill] * len(leaves), a.hop, a.window_len)
+    K = a.windows_per_event
+    if K > 1:
+        inputs = {k: _expand_payload(v, B, K) for k, v in inputs.items()}
+    windows = spec.fold(state.windows, slot, valid, **fold_kw, **inputs)
+    return WState(slot_wid, windows, state.progress, folded, errors)
 
 
 def increment_watermark(spec: WSpec, state: WState, partition, ts) -> WState:
@@ -459,7 +528,8 @@ def wgcounter(window_len: int, num_slots: int, num_partitions: int, key_shape=()
         num_partitions=num_partitions,
         zero_windows=lambda device: crdts.GCounter.zero_windows(
             num_slots, num_partitions, key_shape, device),
-        fold=lambda w, s, m, actor, amounts, keys=None: w.fold_windows(s, m, actor, amounts, keys),
+        fold=lambda w, s, m, actor, amounts, keys=None, inplace=False: w.fold_windows(
+            s, m, actor, amounts, keys, inplace=inplace),
         read=lambda w, slot: w.window_value(slot),
     )
 
@@ -471,7 +541,8 @@ def wpncounter(window_len: int, num_slots: int, num_partitions: int, key_shape=(
         num_partitions=num_partitions,
         zero_windows=lambda device: crdts.PNCounter.zero_windows(
             num_slots, num_partitions, key_shape, device),
-        fold=lambda w, s, m, actor, amounts, keys=None: w.fold_windows(s, m, actor, amounts, keys),
+        fold=lambda w, s, m, actor, amounts, keys=None, inplace=False: w.fold_windows(
+            s, m, actor, amounts, keys, inplace=inplace),
         read=lambda w, slot: w.window_value(slot),
     )
 

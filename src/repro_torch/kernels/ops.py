@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import actor_sum as _actor
 from repro_torch.kernels import crdt_merge as _merge
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ring_insert as _ring
 from repro_torch.kernels import segment_reduce as _seg
 from repro_torch.kernels import topk_window as _topk
 from repro_torch.kernels import window_agg as _agg
@@ -21,12 +22,13 @@ from repro_torch.kernels import window_agg as _agg
 # compares every lane with every cell of its tile, the sorted one does work
 # independent of C (as in the JAX package).
 SPARSE_KEY_THRESHOLD = 1024
+RING_MAX_SLOTS = _ring.MAX_SLOTS
 
 # every launched kernel, for launch accounting
 KERNELS = {"window_agg": _agg.KERNEL, "topk_window": _topk.KERNEL,
            "gated_delta_merge": _merge.KERNEL, "segment_reduce": _seg.KERNEL,
            "crdt_merge": _merge.MERGE_KERNEL, "delta_merge_join": _merge.JOIN_KERNEL,
-           "actor_sum": _actor.KERNEL}
+           "actor_sum": _actor.KERNEL, "ring_insert": _ring.KERNEL}
 # the csrc/<name>.cu sources those kernels are built from
 SOURCES = sorted({k.source for k in KERNELS.values()})
 
@@ -57,6 +59,24 @@ def window_agg(
     if _on_cpu(vals):
         return _ref.window_agg_ref(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
     return _agg.window_agg(vals, slots, mask, W, op=op, keys=keys, C=C, init=init)
+
+
+def ring_insert(ts, mask, part, bidx, slot_wid, progress, folded, errors, leaves, fills,
+                hop: int, window_len: int):
+    """The ring bookkeeping of a fold step (``ref.ring_insert_ref``):
+    ``(slot i32[S, B*K], valid bool[S, B*K], slot_wid, folded, errors)``,
+    each advancing slot of the f32 ``[S, W, ...]`` ``leaves`` set to its
+    fill in place.  ``part`` and ``bidx`` are ints or i64 ``[S]``, ``bidx``
+    may be None; at most ``ring_insert.MAX_LEAVES`` leaves and
+    ``RING_MAX_SLOTS`` slots."""
+    if _on_cpu(ts):
+        S = ts.shape[0]
+        part, bidx = (x if x is None or isinstance(x, torch.Tensor)
+                      else torch.full((S,), int(x), dtype=torch.int64) for x in (part, bidx))
+        return _ref.ring_insert_ref(ts, mask, part, bidx, slot_wid, progress, folded, errors,
+                                    leaves, fills, hop, window_len)
+    return _ring.ring_insert(ts, mask, part, bidx, slot_wid, progress, folded, errors, leaves,
+                             fills, hop, window_len)
 
 
 def actor_sum(rows: torch.Tensor) -> torch.Tensor:

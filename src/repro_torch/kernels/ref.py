@@ -31,11 +31,12 @@ def _fold(lead: tuple, n: int, seg, v, mask, op: str, init) -> torch.Tensor:
     """Fold lanes into ``[..., n]`` cells: a sum, max or min starts from
     ``init`` (or the neutral element) and takes the lanes in lane order; a
     count counts from zero and adds ``init`` once, as the JAX package's
-    kernels do.  One more cell takes the masked lanes and is dropped."""
+    kernels do.  One more cell takes the masked lanes and is dropped: the
+    result is contiguous, as the kernels' outputs are."""
     out = torch.full((*lead, n + 1), NEUTRAL[op], dtype=torch.float32, device=v.device)
     if init is not None and op != "count":
         out[..., :n] = init.reshape(*lead, n)
-    out = _fold_into(out, seg, v, mask, op)[..., :n]
+    out = _fold_into(out, seg, v, mask, op)[..., :n].contiguous()
     if init is not None and op == "count":
         out = out + init.reshape(*lead, n)
     return out
@@ -222,3 +223,61 @@ def topk_window_ref(
     bv = torch.where(m, vals.to(torch.float32).unsqueeze(1), float("-inf"))
     bi = torch.where(m, ids.to(torch.int64).unsqueeze(1), 0)
     return lex_topk(torch.cat([state_vals, bv], -1), torch.cat([state_ids, bi], -1), k)
+
+
+def ring_insert_ref(
+    ts: torch.Tensor,  # i32[S, B] event times
+    mask: torch.Tensor,  # bool[S, B]
+    part: torch.Tensor,  # i64[S] each replica's partition
+    bidx: torch.Tensor | None,  # i64[S] each replica's batch index, or None (no replay gate)
+    slot_wid: torch.Tensor,  # i32[S, W] ring tenants, each at least -1
+    progress: torch.Tensor,  # i32[S, P]
+    folded: torch.Tensor,  # i32[S, P]
+    errors: torch.Tensor,  # i32[S, 3] late, ring, evicted incomplete
+    leaves: list,  # f32 [S, W, ...] window leaves, reset in place
+    fills: list,  # each leaf's zero value
+    hop: int,
+    window_len: int,
+):
+    """The ring bookkeeping of ``wcrdt.insert`` for a replica-wide partition
+    and batch index, with the advancing slots of each leaf reset in place.
+
+    Events gated by ``bidx >= folded[part]`` (replay) and not below
+    ``progress[part]`` (late) expand into ``K = window_len // hop`` lanes,
+    lane ``b*K + k`` the ``k``-th newest window (``window.expand_events``;
+    under K = 1 a window id below 0 stays).  Returns ``(slot i32[S, B*K],
+    valid bool[S, B*K], slot_wid, folded, errors)``, the last three new
+    tensors: ``slot`` each lane's ring slot, ``valid`` the lanes that fold
+    (live and of their slot's new tenant), ``slot_wid`` the max per slot,
+    ``folded[part]`` raised to ``bidx + 1``, and ``errors`` plus the late,
+    stale and incomplete-eviction counts.  As few torch ops as it takes: on
+    the CPU this is the dataplane's step."""
+    S, B = ts.shape
+    W = slot_wid.shape[1]
+    K = window_len // hop
+    col = part.unsqueeze(1)
+    m = mask
+    if bidx is not None:
+        bidx = bidx.to(torch.int32).unsqueeze(1)
+        m = m & (bidx >= folded.gather(1, col))
+    late = m & (ts < progress.gather(1, col))
+    m = m ^ late
+    newest_first = torch.arange(0, -K, -1, dtype=torch.int32, device=ts.device)
+    wid = (torch.div(ts, hop, rounding_mode="floor").unsqueeze(2) + newest_first).reshape(S, -1)
+    m = m.repeat_interleave(K, 1)
+    if K > 1:
+        m = m & (wid >= 0)
+    slot = torch.remainder(wid, W)
+    idx = slot.to(torch.int64)
+    new = slot_wid.scatter_reduce(1, idx, torch.where(m, wid, -1), "amax")
+    adv = new > slot_wid
+    gwid = (torch.div(progress.amin(1, keepdim=True) - window_len, hop, rounding_mode="floor")
+            + 1).clamp(min=0)
+    evict = adv & (slot_wid >= gwid)  # gwid >= 0, so an empty slot (-1) never counts
+    for leaf, fill in zip(leaves, fills):
+        leaf.masked_fill_(adv.reshape(S, W, *(1,) * (leaf.dim() - 2)), fill)
+    stale = m & (wid < new.gather(1, idx))
+    counts = torch.stack([late.sum(1), stale.sum(1), evict.sum(1)], 1)
+    if bidx is not None:
+        folded = folded.scatter_reduce(1, col, bidx + 1, "amax")
+    return slot, m ^ stale, new, folded, errors + counts.to(torch.int32)

@@ -94,8 +94,12 @@ def build_pipeline(
         for _ in range(n_rounds):
             for _ in range(sync_every):
                 with span("holon.fold.step"):
-                    shared, local = query.fold(shared, local, log.batch(idx), part,
-                                               batch_idx=idx)
+                    # the batch as views of the log (the fold copies what a
+                    # kernel takes whole); the states are this pass's own:
+                    # fresh, or the sync round's
+                    batch = log.map(lambda x: x[:, idx])
+                    shared, local = query.fold(shared, local, batch, part, batch_idx=idx,
+                                               owned=True)
                 idx += 1
             with span("holon.sync.round"):
                 synced = []

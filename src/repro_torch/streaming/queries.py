@@ -5,7 +5,8 @@ Each query is a :class:`Query` over stacked replicas: ``shared`` is a tuple
 of WCRDT states joined in the background, ``local`` the partition-local
 windowed state (a WCRDT with a single progress entry).  ``fold`` consumes
 one ``[S, B]`` batch (insert + increment_watermark) with replica ``s`` as
-partition ``partition[s]``; ``read`` returns every replica's value of a
+partition ``partition[s]`` (``owned=True``: the states are the dataplane's
+own, see ``W.insert``); ``read`` returns every replica's value of a
 window and whether it is final.  Every query also ships an ``oracle``: the
 same aggregation computed directly over a whole log with plain torch.
 """
@@ -83,8 +84,8 @@ def make_q0(num_partitions: int, window_len: int = 1000, num_slots: int = 16,
     assigner = as_assigner(window_len, hop)
     lspec = _local_gcounter(window_len, num_slots, assigner)
 
-    def fold(shared, local, batch: EventBatch, partition, batch_idx=None):
-        local = W.insert(lspec, local, 0, batch.ts, batch.valid, batch_idx=batch_idx,
+    def fold(shared, local, batch: EventBatch, partition, batch_idx=None, owned=False):
+        local = W.insert(lspec, local, 0, batch.ts, batch.valid, batch_idx=batch_idx, owned=owned,
                          actor=0, amounts=torch.ones_like(batch.price))
         local = W.increment_watermark(lspec, local, 0, batch_watermark(batch))
         return shared, local
@@ -116,14 +117,14 @@ def make_q4(num_partitions: int, window_len: int = 1000, num_slots: int = 16,
     cnt_spec = W.wgcounter(window_len, num_slots, num_partitions,
                            key_shape=(num_categories,), assigner=assigner)
 
-    def fold(shared, local, batch: EventBatch, partition, batch_idx=None):
+    def fold(shared, local, batch: EventBatch, partition, batch_idx=None, owned=False):
         s, c = shared
         is_bid = batch.valid & (batch.kind == KIND_BID)
         wm = batch_watermark(batch)
-        s = W.insert(sum_spec, s, partition, batch.ts, is_bid, batch_idx=batch_idx,
+        s = W.insert(sum_spec, s, partition, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                      actor=partition, amounts=batch.price, keys=batch.category)
         s = W.increment_watermark(sum_spec, s, partition, wm)
-        c = W.insert(cnt_spec, c, partition, batch.ts, is_bid, batch_idx=batch_idx,
+        c = W.insert(cnt_spec, c, partition, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                      actor=partition, amounts=torch.ones_like(batch.price), keys=batch.category)
         c = W.increment_watermark(cnt_spec, c, partition, wm)
         return (s, c), local
@@ -165,10 +166,10 @@ def make_q7(num_partitions: int, window_len: int = 1000, num_slots: int = 16, k:
     topk_spec = W.wtopk(window_len, num_slots, num_partitions, k,
                         max_active_windows=topk_active, assigner=assigner)
 
-    def fold(shared, local, batch: EventBatch, partition, batch_idx=None):
+    def fold(shared, local, batch: EventBatch, partition, batch_idx=None, owned=False):
         (t,) = shared
         is_bid = batch.valid & (batch.kind == KIND_BID)
-        t = W.insert(topk_spec, t, partition, batch.ts, is_bid, batch_idx=batch_idx,
+        t = W.insert(topk_spec, t, partition, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                      vals=batch.price, ids=batch.auction)
         t = W.increment_watermark(topk_spec, t, partition, batch_watermark(batch))
         return (t,), local
@@ -207,15 +208,15 @@ def make_q1_ratio(num_partitions: int, window_len: int = 1000, num_slots: int = 
     gspec = W.wgcounter(window_len, num_slots, num_partitions, assigner=assigner)
     lspec = _local_gcounter(window_len, num_slots, assigner)
 
-    def fold(shared, local, batch: EventBatch, partition, batch_idx=None):
+    def fold(shared, local, batch: EventBatch, partition, batch_idx=None, owned=False):
         (g,) = shared
         is_bid = batch.valid & (batch.kind == KIND_BID)
         wm = batch_watermark(batch)
         ones = torch.ones_like(batch.price)
-        g = W.insert(gspec, g, partition, batch.ts, is_bid, batch_idx=batch_idx,
+        g = W.insert(gspec, g, partition, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                      actor=partition, amounts=ones)
         g = W.increment_watermark(gspec, g, partition, wm)
-        local = W.insert(lspec, local, 0, batch.ts, is_bid, batch_idx=batch_idx,
+        local = W.insert(lspec, local, 0, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                          actor=0, amounts=ones)
         local = W.increment_watermark(lspec, local, 0, wm)
         return (g,), local
@@ -252,11 +253,11 @@ def make_q5(num_partitions: int, window_len: int = 1000, num_slots: int = 16,
     cnt_spec = W.wgcounter(window_len, num_slots, num_partitions,
                            key_shape=(num_auctions,), assigner=assigner)
 
-    def fold(shared, local, batch: EventBatch, partition, batch_idx=None):
+    def fold(shared, local, batch: EventBatch, partition, batch_idx=None, owned=False):
         (c,) = shared
         is_bid = batch.valid & (batch.kind == KIND_BID)
         bucket = (batch.auction % num_auctions).to(torch.int32)
-        c = W.insert(cnt_spec, c, partition, batch.ts, is_bid, batch_idx=batch_idx,
+        c = W.insert(cnt_spec, c, partition, batch.ts, is_bid, batch_idx=batch_idx, owned=owned,
                      actor=partition, amounts=torch.ones_like(batch.price), keys=bucket)
         c = W.increment_watermark(cnt_spec, c, partition, batch_watermark(batch))
         return (c,), local

@@ -241,6 +241,9 @@ def test_kernel_wrappers_count_launches(dev):
     ops.delta_merge_join(wid, wid, [torch.zeros((S, W, 3), device=dev)],
                          [torch.zeros((S, W, 3), device=dev)], ["max"], [slots], [slots])
     ops.actor_sum(torch.zeros((S, 3, 4), device=dev))
+    meta = torch.zeros((S, 2), dtype=torch.int32, device=dev)
+    ops.ring_insert(slots, mask, 0, 1, wid, meta, meta, torch.zeros((S, 3), dtype=torch.int32,
+                    device=dev), [torch.zeros((S, W, 3), device=dev)], [0.0], 10, 10)
     for n, k in ops.KERNELS.items():
         assert k.launches == before[n] + 1, n
 
@@ -1005,3 +1008,146 @@ def test_serving_repeats_bitwise_on_card(dev, arch):
     (_, l1, c1), (_, l2, c2) = (_serve_run(cfg, dev) for _ in range(2))
     for a, b in zip(l1 + tree_leaves(c1), l2 + tree_leaves(c2)):
         assert torch.equal(a, b)
+
+
+RING_SHAPES = {  # S, B, K, W, P, leaf shapes after [S, W], fills
+    "q5_dense": (16, 16384, 2, 64, 16, [(16, 10000)], [0.0]),
+    "odd_k3": (3, 1000, 3, 7, 5, [(3,)], [float("-inf")]),
+    "two_leaves": (5, 4099, 2, 13, 2, [(2, 7), (2, 7)], [0.0, 0.0]),
+    "one_lane": (1, 1, 1, 5, 1, [()], [float("inf")]),
+    "no_lanes": (2, 0, 2, 4, 3, [(1, 6)], [0.0]),
+    # clusters of 3 blocks with a ragged last share, and of 8 over the
+    # largest ring: the slot max joined across blocks
+    "cluster_3": (7, 5000, 2, 64, 16, [(16, 3)], [0.0]),
+    "cluster_8_wide": (4, 40000, 1, 1024, 4, [(5,)], [float("-inf")]),
+}
+
+
+def _ring_inputs(rng, S, B, K, W, P, rests, idx):
+    hop, base = 10, 100  # the batch's windows lie around window ``base``
+    wid = base - W + rng.integers(0, W + 3, (S, W))
+    wid = wid - (wid - np.arange(W)) % W  # a tenant sits in its own slot
+    # empty slots hold -1, as in every state
+    wid = np.where((rng.random((S, W)) < 0.2) | (wid < 0), -1, wid).astype(np.int32)
+    ts = (base * hop + rng.integers(-4 * hop, 3 * hop, (S, B))).astype(np.int32)
+    progress = (base * hop + rng.integers(-6 * hop, hop, (S, P))).astype(np.int32)
+    folded = rng.integers(0, 20, (S, P)).astype(np.int32)
+    T = torch.from_numpy
+    args = dict(ts=T(ts), mask=T(rng.random((S, B)) < 0.8), slot_wid=T(wid),
+                progress=T(progress), folded=T(folded),
+                errors=T(rng.integers(0, 9, (S, 3)).astype(np.int32)))
+    if idx == "tensors":
+        args.update(part=T(rng.integers(0, P, S)), bidx=T(rng.integers(5, 25, S)))
+    else:
+        args.update(part=P - 1, bidx=None if idx == "ungated" else 12)
+    leaves = [T((rng.standard_normal((S, W, *r)) * 10).astype(np.float32)) for r in rests]
+    return args, leaves, hop, hop * K
+
+
+@pytest.mark.parametrize("idx", ["tensors", "ints", "ungated"])
+@pytest.mark.parametrize("shape", list(RING_SHAPES))
+def test_ring_insert_kernel_matches_plain(dev, shape, idx):
+    """The one-launch ring bookkeeping against its plain version, bitwise on
+    every output and on the leaves it resets in place; at q5's dense shape
+    some slots advance."""
+    from repro_torch.kernels import ring_insert
+
+    S, B, K, W, P, rests, fills = RING_SHAPES[shape]
+    rng = np.random.default_rng(len(shape) * 3 + len(idx))
+    args, leaves, hop, wl = _ring_inputs(rng, S, B, K, W, P, rests, idx)
+    on = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in args.items()}
+    mine, theirs = [x.to(dev) for x in leaves], [x.to(dev) for x in leaves]
+    before = ops.KERNELS["ring_insert"].launches
+    got = ring_insert.ring_insert(leaves=mine, fills=fills, hop=hop, window_len=wl, **on)
+    ref_args = dict(on)
+    for k in ("part", "bidx"):
+        if ref_args[k] is not None and not isinstance(ref_args[k], torch.Tensor):
+            ref_args[k] = torch.full((S,), ref_args[k], dtype=torch.int64, device=dev)
+    want = ref.ring_insert_ref(leaves=theirs, fills=fills, hop=hop, window_len=wl, **ref_args)
+    torch.cuda.synchronize()
+    assert ops.KERNELS["ring_insert"].launches == before + 1
+    for name, g, w in zip(("slot", "valid", "slot_wid", "folded", "errors"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(), err_msg=name)
+    for g, w in zip(mine, theirs):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(), err_msg="leaf")
+    for k in ("slot_wid", "progress", "folded", "errors", "ts", "mask"):
+        np.testing.assert_array_equal(on[k].cpu().numpy(), args[k].numpy(), err_msg=k)
+    if shape == "q5_dense":
+        assert bool((want[2] > on["slot_wid"]).any()) and int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("qname", ["q0", "q1_ratio", "q4", "q5"])
+def test_pipeline_owned_insert_matches_functional_on_card(dev, qname, monkeypatch):
+    """A whole ``build_pipeline`` pass on the card, its fold steps on
+    ``insert(owned=True)`` (one ring launch a counter spec a step), gives
+    the outputs of the same pass on the functional ``insert``, bitwise, with
+    no synchronising call."""
+    import warnings
+
+    from repro_torch.core import wcrdt as W
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.stream import MAKERS, build_pipeline, read_window_range
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    S, nb = 16, 16
+    nx = NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=2048)
+    log = generate_log(nx, dev)
+    kw = {"num_auctions": 10_000} if qname == "q5" else {}
+    q = MAKERS[qname](S, window_len=100, num_slots=64, **kw)
+    first, n = read_window_range(q, nb * nx.batch_span_ms)
+    pipe = build_pipeline(q, make_data_mesh(S, dev), 4, n_windows=n, first_window=first)
+    pipe(log)  # warm-up
+    torch.cuda.synchronize()
+    before = ops.KERNELS["ring_insert"].launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = pipe(log)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    got = [t.cpu() for t in got]
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    specs = len(q.shared_specs) + (q.local_spec is not None)
+    assert ops.KERNELS["ring_insert"].launches - before == nb * specs
+    functional = W.insert
+    monkeypatch.setattr(W, "insert", lambda *a, owned=False, **k: functional(*a, **k))
+    want = [t.cpu() for t in pipe(log)]
+    assert got[0].sum() > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert syncs == [], [str(w.message)[:160] for w in syncs]
+
+
+# q5's fold step at the dense cell's shape on the card: 46.6 device events a
+# step measured (H100, torch 2.11), with a margin of 1.4
+Q5_DEVICE_EVENTS_PER_STEP = 48
+
+
+def test_q5_fold_step_device_events_stay_bounded(dev):
+    """q5's dense fold step as ``build_pipeline`` runs it (``query.fold`` of
+    the batch's views on the dataplane's own states): the device events it
+    enqueues a step stay under a ceiling."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.stream import MAKERS
+    from repro_torch.streaming.generator import NexmarkConfig, generate_log
+
+    S, nb = 16, 6
+    log = generate_log(NexmarkConfig(num_partitions=S, num_batches=nb, events_per_batch=16384),
+                       dev)
+    q = MAKERS["q5"](S, window_len=10_000, num_slots=64, num_auctions=10_000)
+    part = torch.arange(S, device=dev)
+    shared, local = q.init_shared(dev), q.init_local(dev)
+    batch = lambda i: log.map(lambda x: x[:, i])  # noqa: E731  the views build_pipeline folds
+    shared, local = q.fold(shared, local, batch(0), part, batch_idx=0, owned=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(1, nb):
+            shared, local = q.fold(shared, local, batch(i), part, batch_idx=i, owned=True)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_step = len(events) / (nb - 1)
+    print(f"q5 dense fold step: {per_step} device events a step")
+    assert per_step <= Q5_DEVICE_EVENTS_PER_STEP, sorted({e.name[:80] for e in events})

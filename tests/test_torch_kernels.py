@@ -334,7 +334,7 @@ def test_build_names_libraries_by_source_hash():
     the source and flags; nothing is built when a module is imported."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     paths = {n: build.lib_path(n) for n in ops.SOURCES}
-    assert len(set(paths.values())) == len(ops.SOURCES) == 6
+    assert len(set(paths.values())) == len(ops.SOURCES) == 7
     for n, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(n + "-")
         assert build.lib_path(n) == p
